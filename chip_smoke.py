@@ -5,20 +5,26 @@
 Phases (any failure ends the run with a non-zero exit; there is no CPU path):
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the CUDA kernel from csrc/ with nvcc, timed
-  3. kernel   flash attention against its plain PyTorch version at every shape
-              the denoised AR path gives it, bf16 and f32, timed with CUDA
-              events (plain, kernel, kernel, plain)
-  4. slice    the full-width denoised AR serving path (flagship
-              FrameTransformer + SD-v1.4 VAE/UNet/CLIP-text, bf16, seeded
-              random weights): the port's ``serve`` loop answers predict
+  2. build    the CUDA kernels from csrc/ with nvcc, timed
+  3. kernel   the full-width models (flagship FrameTransformer + SD-v1.4
+              VAE/UNet/CLIP-text, bf16, seeded random weights) are built on
+              the card; a dry run of both serving paths with the plain
+              versions records every shape each kernel is handed there; flash
+              attention and GroupNorm+SiLU are held against their plain
+              PyTorch versions at each of those shapes, bf16 and f32, timed
+              with CUDA events (plain, kernel, kernel, plain)
+  4. serve    ``vae_denoise_ar4``: the port's ``serve`` loop at
+              batch_clips=1 with the 10-step DDIM tail answers predict
               requests over a Unix socket; reply shapes, finite latents and
-              the exact kernel launch count are checked, warm frames/sec
-              printed
-  5. check    one full-width 512px UNet forward with the kernel against the
-              same forward with plain attention (relative L2), and the whole
-              slice at small widths in f32 on the card (kernel) against the
-              CPU (plain attention) with the same weights and noise
+              the exact launch count of each kernel are checked, warm
+              predicted frames/s printed
+  5. serve8   ``vae_denoise_ar4_8streams_dpmpp5``: the same at batch_clips=8
+              with the 5-eval DPM-Solver++(2M) tail; three 8-clip requests
+              and one ragged 3-clip request
+  6. check    a full-width 512px UNet forward and VAE decode with the
+              kernels against the same with the plain versions (relative
+              L2), and the whole slice at small widths in f32 on the card
+              (kernels) against the CPU (plain) with each sampler
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and matmul
@@ -38,6 +44,8 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
@@ -48,34 +56,56 @@ from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                      CLIPTextEncoder)
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
-from sd_video_gen_tpu_torch.models.unet import UNet2DCondition, UNetConfig
-from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from sd_video_gen_tpu_torch.models.unet import (Transformer2D,
+                                                UNet2DCondition, UNetConfig)
+from sd_video_gen_tpu_torch.models.vae import (AttnBlock, AutoencoderKL,
+                                               VAEConfig)
 from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.ops.attention import (flash_attention,
-                                                  force_reference,
                                                   reference_attention)
+from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
+                                                  groupnorm_silu_reference)
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
 
 FRAME, CONTEXT, PRED, HI_RES, START_STEP, DDIM_STEPS = 64, 5, 4, 512, 40, 50
-REQUESTS = 3
-# (BH, T, d) of every flash-attention call on the path at B=1: UNet levels
-# 0-2 and mid at 512px; VAE mid block at 512px and at 64px (5 context frames)
-PATH_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160), (8, 64, 160),
-               (1, 4096, 512), (5, 64, 512)]
-# f32: FMA order over up to 4096 keys. bf16: p is rounded to bf16 before p.v
-# and the output to bf16, as in the TPU kernel.
-KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# bf16 UNet, kernel vs plain attention: both round p and each output to bf16
-# but sum in other orders; one-ulp differences (2^-8 relative) pass through
-# 16 attention layers and the residual stream.
+# The two serving paths: the JAX bench's vae_denoise_ar4 and
+# vae_denoise_ar4_8streams_dpmpp5 (bench.py); requests are clips per request.
+PATHS = [dict(name="vae_denoise_ar4", batch_clips=1, sampler="ddim",
+              solver_steps=None, requests=[1, 1, 1]),
+         dict(name="vae_denoise_ar4_8streams_dpmpp5", batch_clips=8,
+              sampler="dpmpp", solver_steps=5, requests=[8, 8, 8, 3])]
+# Kernel vs its plain version computed in f32 from the same inputs.
+# flash attention, max abs: f32 FMA order over up to 4096 keys; bf16: p is
+# rounded to bf16 before p.v and the output to bf16, as in the TPU kernel.
+ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# GroupNorm+SiLU, |out - ref| <= rtol |ref| + atol: f32, the same two-pass
+# statistics summed in another order; bf16, the one final rounding (half an
+# ulp, 2^-9 relative) plus that f32 noise.
+GN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -8, 1e-5)}
+# bf16 512px forwards, both kernels vs both plain versions: both round to
+# bf16 at the same places but sum in other orders, and one-ulp differences
+# pass through every norm, attention layer and the residual stream. The
+# floor, over 3 seeds (x 3 timesteps for the UNet), is the plain model
+# against itself with only attention's p kept in f32, or with torch's own
+# bf16 GroupNorm + SiLU: UNet 1.03e-2 to 1.06e-2 and 1.26e-2 to 1.30e-2
+# (kernels 1.04e-2 to 1.07e-2); VAE decode 2.11e-2 to 2.12e-2 and 2.79e-2
+# to 2.83e-2 (kernels 2.11e-2 to 2.13e-2) (PERF.md, Findings).
 UNET_REL_L2 = 2e-2
+VAE_REL_L2 = 4e-2
 # f32 slice at small widths, card vs CPU: summation order only (TF32 off),
 # but frames pass through uint8 twice per refine, so a value on a rounding
 # boundary may flip a level and move the re-encoded latent.
 SMALL_LATENT_ATOL = 1e-3
 SMALL_PIXEL_FLIP_SHARE = 0.01
-UNET_ATTN_PER_FORWARD = 16   # self-attention: 6 down, 1 mid, 9 up
+KERNELS = {
+    "flash_attention": dict(
+        source="sd_video_gen_tpu_torch/csrc/flash_attention.cu",
+        replaces="sd_video_gen_tpu/ops/attention.py:63"),
+    "groupnorm_silu": dict(
+        source="sd_video_gen_tpu_torch/csrc/groupnorm_silu.cu",
+        replaces="sd_video_gen_tpu/ops/groupnorm.py:35"),
+}
 
 
 def log(*a):
@@ -96,6 +126,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(plain, kern) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain with as many
+    launches as fill about 25 ms of the plain version (3 to 100)."""
+    iters = int(min(100, max(3, 25.0 / max(cuda_ms(plain, 1), 1e-3))))
+    p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,43 +150,6 @@ def phase_build():
     _kernels.library()
     log(f"build: {_kernels.BUILD['path']} nvcc {_kernels.BUILD['seconds']:.2f} s"
         f" (load included {time.perf_counter() - t0:.2f} s)")
-
-
-def phase_kernel() -> dict:
-    dev = torch.device("cuda")
-    rows, failures = [], []
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape in PATH_SHAPES:
-            g = torch.Generator(device=dev).manual_seed(0)
-            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                       for _ in range(3))
-            scale = shape[-1] ** -0.5
-            out = flash_attention(q, k, v, scale)
-            ref = reference_attention(q.float(), k.float(), v.float(), scale)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            iters = 20 if shape[1] >= 1024 else 100
-            plain = lambda: reference_attention(q, k, v, scale)
-            kern = lambda: flash_attention(q, k, v, scale)
-            p1, k1, k2, p2 = (cuda_ms(f, iters)
-                              for f in (plain, kern, kern, plain))
-            row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
-                       max_abs_err=err, atol=KERNEL_ATOL[dtype],
-                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-            rows.append(row)
-            log("kernel: " + json.dumps(row))
-            if not err <= KERNEL_ATOL[dtype]:
-                failures.append(row)
-    if failures:
-        raise AssertionError(f"flash_attention disagrees with the plain "
-                             f"version: {failures}")
-    # the summary's times are those of the shape with the most device time
-    # on the path (UNet level 0); its error is the worst over all rows
-    hot = next(r for r in rows
-               if r["shape"] == [8, 4096, 40] and r["dtype"] == "bfloat16")
-    log(f"kernel: summary times at {hot['shape']} {hot['dtype']}")
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=hot["ms"], plain_ms=hot["plain_ms"])
 
 
 def _assert_finite(name, x):
@@ -185,19 +186,22 @@ def _models(device, dtype, vae_cfg, unet_cfg, clip_cfg, ft_dims, frame):
                 latent_dim=latent_dim, **ft_dims), device, dtype, seed=3))
 
 
-def _predict_fn(models, frame, hi_res, pred, noise_fn=None, checked=False):
-    """The port's predict entry point over ``models`` (refine at hi_res)."""
+def _predict_fn(models, frame, hi_res, pred, path, noise_fn=None,
+                checked=False):
+    """The port's predict entry point over ``models`` (refine at hi_res with
+    the path's sampler)."""
     vae, unet, clip, ft = models
     codec = VAECodec(frame, vae)
-    refine = make_denoise_refiner(SDPipeline(vae, unet, clip), frame,
-                                  START_STEP, DDIM_STEPS, hi_res, noise_fn)
+    refine = make_denoise_refiner(
+        SDPipeline(vae, unet, clip), frame, START_STEP, DDIM_STEPS, hi_res,
+        noise_fn, sampler=path["sampler"], solver_steps=path["solver_steps"])
     if checked:
         refine = checked_refine(refine)
     predict = make_predict_fn(ft, codec, pred, window=CONTEXT, refiner=refine)
     return codec, checked_predict(predict) if checked else predict
 
 
-def phase_slice() -> dict:
+def full_width_models():
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     t0 = time.perf_counter()
     models = _models(dev, bf16, VAEConfig(), UNetConfig(), CLIPTextConfig(),
@@ -205,10 +209,145 @@ def phase_slice() -> dict:
                           num_decoder_layers=8), FRAME)
     n_params = sum(p.numel() for m in models for p in m.parameters())
     torch.cuda.synchronize()
-    log(f"slice: built {n_params / 1e6:.1f}M params bf16 on {dev} in "
+    log(f"models: built {n_params / 1e6:.1f}M params bf16 on {dev} in "
         f"{time.perf_counter() - t0:.1f} s")
-    codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, checked=True)
+    return models
 
+
+def path_signatures(models):
+    """Every (kernel, signature) the serving paths hand the dispatchers, with
+    its number of calls in one batch of each path: a dry run of predict +
+    the final decode (what ``serve`` runs per batch) with the plain
+    versions."""
+    t0 = time.perf_counter()
+    with _kernels.force_reference(), _kernels.record_calls() as rec, \
+            torch.inference_mode():
+        for path in PATHS:
+            codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path)
+            context, preds = predict(np.zeros(
+                (path["batch_clips"], CONTEXT, FRAME, FRAME, 3), np.uint8))
+            seq = torch.cat([context[:, :-1], preds], dim=1)
+            codec.decode_latents(seq.reshape(-1, seq.shape[-1]))
+    torch.cuda.synchronize()
+    n = {k: sum(1 for name, _ in rec.calls if name == k) for k in KERNELS}
+    log(f"kernel: dry run of both paths (plain versions) in "
+        f"{time.perf_counter() - t0:.1f} s: {n} distinct signatures")
+    return rec.calls
+
+
+def check_attention(sig, dtype) -> dict:
+    shape, _, scale = sig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    out = flash_attention(q, k, v, scale)
+    ref = reference_attention(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    del out, ref
+    ms, plain_ms = timed(lambda: reference_attention(q, k, v, scale),
+                         lambda: flash_attention(q, k, v, scale))
+    return dict(max_abs_err=err, ok=err <= ATTN_ATOL[dtype], ms=ms,
+                plain_ms=plain_ms)
+
+
+def check_groupnorm(sig, dtype) -> dict:
+    shape, _, groups, eps, silu = sig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    C = shape[1]
+    w = (1 + 0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+    b = (0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+    out = groupnorm_silu(x, w, b, groups, eps, silu)
+    ref = groupnorm_silu_reference(x.float(), w.float(), b.float(), groups,
+                                   eps, silu)
+    diff = (out.float() - ref).abs()
+    rtol, atol = GN_TOL[dtype]
+    ok = bool((diff <= rtol * ref.abs() + atol).all())
+    err = diff.max().item()
+    del out, ref, diff
+    ms, plain_ms = timed(
+        lambda: groupnorm_silu_reference(x, w, b, groups, eps, silu),
+        lambda: groupnorm_silu(x, w, b, groups, eps, silu))
+    return dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernel(sigs) -> dict:
+    rows, failures = [], []
+    for (name, sig), calls in sigs.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            check = check_attention if name == "flash_attention" else \
+                check_groupnorm
+            row = dict(kernel=name, shape=list(sig[0]),
+                       args=[str(a) for a in sig[2:]],
+                       dtype=str(dtype).split(".")[-1], calls=calls,
+                       **check(sig, dtype))
+            rows.append(row)
+            log(f"kernel: {name} {tuple(sig[0])} {row['args']} "
+                f"{row['dtype']} x{calls}: err {row['max_abs_err']:.2e} "
+                f"{'ok' if row['ok'] else 'FAIL'}, {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms")
+            if not row["ok"]:
+                failures.append(row)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{failures}")
+    summary = {}
+    for name in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        # times: the bf16 shape with the most kernel time in one batch of
+        # both paths; error: the worst over all rows
+        hot = max((r for r in mine if r["dtype"] == "bfloat16"),
+                  key=lambda r: r["calls"] * r["ms"])
+        summary[name] = dict(max_abs_err=max(r["max_abs_err"] for r in mine),
+                             ms=hot["ms"], plain_ms=hot["plain_ms"])
+        log(f"kernel: {name} summary times at {hot['shape']} {hot['args']} "
+            f"bf16 (most kernel time per batch), {len(mine)} rows")
+        if name == "groupnorm_silu":  # for scale only: torch's own ops
+            shape, groups, eps = hot["shape"], int(hot["args"][0]), \
+                float(hot["args"][1])
+            x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+            w = torch.ones(shape[1], device="cuda", dtype=torch.bfloat16)
+            ms = cuda_ms(lambda: F.silu(F.group_norm(x, groups, w, w, eps)),
+                         20)
+            log(f"kernel: for scale, torch nn.GroupNorm + F.silu at "
+                f"{shape} bf16: {ms:.4f} ms")
+            del x
+    return summary
+
+
+def expected_launches(models, path) -> dict:
+    """Launches of each kernel in the path's serve run, from the models'
+    structure: every GroupNorm module runs once per pass, flash attention
+    once per VAE attention block and per UNet Transformer2D (attn1)."""
+    vae, unet = models[0], models[1]
+    count = lambda m, cls: sum(isinstance(x, cls) for x in m.modules())
+    per_pass = {  # (VAE encode, VAE decode, UNet forward)
+        "flash_attention": (count(vae.encoder, AttnBlock),
+                            count(vae.decoder, AttnBlock),
+                            count(unet, Transformer2D)),
+        "groupnorm_silu": (count(vae.encoder, nn.GroupNorm),
+                           count(vae.decoder, nn.GroupNorm),
+                           count(unet, nn.GroupNorm))}
+    n_unet = (DDIMSchedule(DDIM_STEPS).n_steps - START_STEP
+              if path["sampler"] == "ddim" else path["solver_steps"])
+    batches = 1 + len(path["requests"])         # warm-up + requests
+    out = {}
+    for name, (enc, dec, un) in per_pass.items():
+        # context encode; per frame 2 VAE dec + 2 VAE enc + the UNet calls;
+        # the final decode
+        out[name] = batches * (enc + PRED * (2 * dec + 2 * enc + n_unet * un)
+                               + dec)
+        log(f"{path['name']}: {name} expected {out[name]} = {batches} batches "
+            f"x ({enc} + {PRED} x (2 x {dec} + 2 x {enc} + {n_unet} x {un}) "
+            f"+ {dec})")
+    return out
+
+
+def phase_serve(models, path) -> dict:
+    name, batch_clips = path["name"], path["batch_clips"]
+    codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path,
+                                 checked=True)
     sock_dir = tempfile.TemporaryDirectory(prefix="sdvg")
     sock = os.path.join(sock_dir.name, "serve.sock")
     if len(sock) > 100:
@@ -217,8 +356,9 @@ def phase_slice() -> dict:
 
     def run_server():
         try:
-            S.serve(sock, predict, codec.decode_latents, batch_clips=1,
-                    frames_per_clip=CONTEXT, frame_size=FRAME)
+            S.serve(sock, predict, codec.decode_latents,
+                    batch_clips=batch_clips, frames_per_clip=CONTEXT,
+                    frame_size=FRAME)
         except Exception as e:  # re-raised by the main thread below
             errors.append(e)
 
@@ -237,19 +377,19 @@ def phase_slice() -> dict:
                 break
             except OSError:
                 time.sleep(0.5)
-        ready_s = time.perf_counter() - t_start
-        log(f"slice: server ready after {ready_s:.1f} s (warm-up batch "
-            f"included)")
+        log(f"{name}: server ready after {time.perf_counter() - t_start:.1f}"
+            f" s (warm-up batch included)")
         rng = np.random.default_rng(0)
-        for i in range(REQUESTS):
-            frames = rng.integers(0, 256, (1, CONTEXT, FRAME, FRAME, 3),
+        for i, clips in enumerate(path["requests"]):
+            frames = rng.integers(0, 256, (clips, CONTEXT, FRAME, FRAME, 3),
                                   dtype=np.uint8)
             t1 = time.perf_counter()
             imgs, is_pred, _ = S.request(sock, frames, timeout_s=600)
             wall = time.perf_counter() - t1
-            replies.append((imgs, is_pred, wall))
-            log(f"slice: request {i}: {list(imgs.shape)} {imgs.dtype}, "
-                f"{wall:.3f} s, {PRED / wall:.3f} predicted frames/s")
+            replies.append((clips, imgs, is_pred, wall))
+            log(f"{name}: request {i} ({clips} clips at batch_clips="
+                f"{batch_clips}): {list(imgs.shape)} {imgs.dtype}, "
+                f"{wall:.3f} s, {clips * PRED / wall:.3f} predicted frames/s")
     finally:
         if server.is_alive():
             S.shutdown(sock)
@@ -262,30 +402,41 @@ def phase_slice() -> dict:
     if server.is_alive():
         raise RuntimeError("serve loop did not stop")
 
-    want_shape = (1, CONTEXT - 1 + PRED, FRAME, FRAME, 3)
     want_flags = [False] * (CONTEXT - 1) + [True] * PRED
-    for imgs, is_pred, _ in replies:
+    for clips, imgs, is_pred, _ in replies:
+        want_shape = (clips, CONTEXT - 1 + PRED, FRAME, FRAME, 3)
         if (imgs.shape != want_shape or imgs.dtype != np.uint8
                 or is_pred != want_flags):
             raise AssertionError(f"reply {imgs.shape} {imgs.dtype} "
                                  f"{is_pred}; expected {want_shape} uint8 "
                                  f"{want_flags}")
-    n_unet = DDIMSchedule(DDIM_STEPS).n_steps - START_STEP
-    per_frame = 4 + n_unet * UNET_ATTN_PER_FORWARD   # 2 VAE dec + 2 VAE enc
-    per_batch = 1 + PRED * per_frame + 1             # context enc, final dec
-    expected = (1 + REQUESTS) * per_batch            # warm-up + requests
-    got = launches.get("flash_attention", 0)
-    log(f"slice: flash_attention launches {got}, expected {expected} = "
-        f"(1 warm-up + {REQUESTS} requests) x (1 + {PRED} x (4 + {n_unet} x "
-        f"{UNET_ATTN_PER_FORWARD}) + 1)")
-    if got != expected:
-        raise AssertionError(f"flash_attention launched {got} times, the "
-                             f"path implies {expected}")
-    fps = [PRED / wall for _, _, wall in replies]
-    log(f"slice: warm predicted frames/s at B=1: {fps} (mean "
-        f"{float(np.mean(fps)):.4f}); total {time.perf_counter() - t_start:.1f}"
-        f" s")
-    return dict(launches=got, models=models)
+    expected = expected_launches(models, path)
+    log(f"{name}: launches {launches}")
+    for kernel, want in expected.items():
+        if launches.get(kernel, 0) != want:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{launches.get(kernel, 0)} times, the path "
+                                 f"implies {want}")
+    full = [c * PRED / w for c, _, _, w in replies if c == batch_clips]
+    log(f"{name}: warm predicted frames/s at B={batch_clips}: {full} (mean "
+        f"{float(np.mean(full)):.4f}); total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def _rel_l2(fn) -> tuple[float, float, float]:
+    """Relative L2 of ``fn()`` with the kernels against the plain versions,
+    and each one's device ms."""
+    out = fn()
+    with _kernels.force_reference():
+        ref = fn()
+    torch.cuda.synchronize()
+    _assert_finite("output", out)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    ms = cuda_ms(fn, 5)
+    with _kernels.force_reference():
+        ms_ref = cuda_ms(fn, 5)
+    return rel, ms, ms_ref
 
 
 def phase_check(models):
@@ -297,26 +448,20 @@ def phase_check(models):
     t = torch.tensor([981.0], device=dev)
     ctx = SDPipeline(vae, unet, clip).uncond_embeddings(1)[:1]
     with torch.inference_mode():
-        fwd = lambda: unet(sample, t, ctx)
-        eps = fwd()
-        with force_reference():
-            eps_ref = fwd()
-        torch.cuda.synchronize()
-        _assert_finite("unet eps", eps)
-        rel = ((eps - eps_ref).norm() / eps_ref.norm()).item()
-        ms = cuda_ms(fwd, 5)
-        with force_reference():
-            ms_ref = cuda_ms(fwd, 5)
-    log(f"check: 512px UNet forward bf16, kernel vs plain attention: rel L2 "
-        f"{rel:.3e} (bound {UNET_REL_L2}); {ms:.2f} ms with the kernel, "
-        f"{ms_ref:.2f} ms plain")
-    if not rel <= UNET_REL_L2:
-        raise AssertionError(f"UNet with the kernel: rel L2 {rel} > "
-                             f"{UNET_REL_L2}")
+        for what, fn, bound in (
+                ("UNet forward", lambda: unet(sample, t, ctx), UNET_REL_L2),
+                ("VAE decode", lambda: vae.decode(sample), VAE_REL_L2)):
+            rel, ms, ms_ref = _rel_l2(fn)
+            log(f"check: {HI_RES}px {what} bf16, kernels vs plain: rel L2 "
+                f"{rel:.3e} (bound {bound}); {ms:.2f} ms with the kernels, "
+                f"{ms_ref:.2f} ms plain")
+            if not rel <= bound:
+                raise AssertionError(f"{what} with the kernels: rel L2 {rel} "
+                                     f"> {bound}")
 
-    # The whole slice at small widths in f32: on the card with the kernel,
-    # against the same weights and noise on the CPU with plain attention
-    # (the version the CPU tests hold against the JAX package).
+    # The whole slice at small widths in f32, with each sampler: on the card
+    # with the kernels, against the same weights and noise on the CPU with
+    # the plain versions (what the CPU tests hold against the JAX package).
     noise = lambda step, shape: torch.randn(
         shape, generator=torch.Generator().manual_seed(step))
     cpu_models = _models(
@@ -333,30 +478,34 @@ def phase_check(models):
     gpu_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
     frames = np.random.default_rng(1).integers(
         0, 256, (2, CONTEXT, 16, 16, 3), dtype=np.uint8)
-    out = {}
-    for name, ms_ in (("cpu", cpu_models), ("gpu", gpu_models)):
-        codec, predict = _predict_fn(ms_, 16, 64, 3, noise_fn=noise)
-        before = _kernels.LAUNCHES["flash_attention"]
-        ctx, preds = predict(frames)
-        img = codec.decode_latents(preds.reshape(-1, codec.latent_dim))
-        launched = _kernels.LAUNCHES["flash_attention"] - before
-        out[name] = (ctx.cpu(), preds.cpu(), img.cpu(), launched)
-    if not (out["gpu"][3] > 0 and out["cpu"][3] == 0):
-        raise AssertionError(f"small slice launches: {out['gpu'][3]} on the "
-                             f"card, {out['cpu'][3]} on the CPU")
-    ctx_err = (out["gpu"][0] - out["cpu"][0]).abs().max().item()
-    lat_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
-    flips = (out["gpu"][2].int() - out["cpu"][2].int()).abs()
-    flip_share = flips.float().mean().item()
-    log(f"check: small f32 slice, card (kernel) vs CPU (plain): context max "
-        f"abs {ctx_err:.3e}, preds max abs {lat_err:.3e} (bound "
-        f"{SMALL_LATENT_ATOL}), pixels differing {flip_share:.4%} (bound "
-        f"{SMALL_PIXEL_FLIP_SHARE:.0%}), max level difference "
-        f"{flips.max().item()}")
-    if not (max(ctx_err, lat_err) <= SMALL_LATENT_ATOL
-            and flip_share <= SMALL_PIXEL_FLIP_SHARE
-            and flips.max().item() <= 1):
-        raise AssertionError("small slice: the card disagrees with the CPU")
+    for path in PATHS:
+        out = {}
+        for where, ms_ in (("cpu", cpu_models), ("gpu", gpu_models)):
+            codec, predict = _predict_fn(ms_, 16, 64, 3, path, noise_fn=noise)
+            before = dict(_kernels.LAUNCHES)
+            ctx, preds = predict(frames)
+            img = codec.decode_latents(preds.reshape(-1, codec.latent_dim))
+            launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+                        for k in KERNELS}
+            out[where] = (ctx.cpu(), preds.cpu(), img.cpu(), launched)
+        if not (min(out["gpu"][3].values()) > 0
+                and max(out["cpu"][3].values()) == 0):
+            raise AssertionError(f"small slice launches: {out['gpu'][3]} on "
+                                 f"the card, {out['cpu'][3]} on the CPU")
+        ctx_err = (out["gpu"][0] - out["cpu"][0]).abs().max().item()
+        lat_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
+        flips = (out["gpu"][2].int() - out["cpu"][2].int()).abs()
+        flip_share = flips.float().mean().item()
+        log(f"check: small f32 slice ({path['sampler']}), card (kernels "
+            f"{out['gpu'][3]}) vs CPU (plain): context max abs {ctx_err:.3e}, "
+            f"preds max abs {lat_err:.3e} (bound {SMALL_LATENT_ATOL}), pixels "
+            f"differing {flip_share:.4%} (bound {SMALL_PIXEL_FLIP_SHARE:.0%}),"
+            f" max level difference {flips.max().item()}")
+        if not (max(ctx_err, lat_err) <= SMALL_LATENT_ATOL
+                and flip_share <= SMALL_PIXEL_FLIP_SHARE
+                and flips.max().item() <= 1):
+            raise AssertionError(f"small slice ({path['sampler']}): the card "
+                                 f"disagrees with the CPU")
 
 
 def main() -> int:
@@ -369,15 +518,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    kern = phase_kernel()
-    sl = phase_slice()
-    phase_check(sl["models"])
+    models = full_width_models()
+    summary = phase_kernel(path_signatures(models))
+    launches = {k: 0 for k in KERNELS}
+    for path in PATHS:
+        for k, n in phase_serve(models, path).items():
+            launches[k] = launches.get(k, 0) + n
+    phase_check(models)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "sd_video_gen_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "sd_video_gen_tpu/ops/attention.py:63",
-        "launches": sl["launches"], **kern}]}))
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
+         **summary[k]} for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

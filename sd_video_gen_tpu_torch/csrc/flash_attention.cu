@@ -30,8 +30,9 @@
 // two products are free of bank conflicts.
 //
 // Built by sd_video_gen_tpu_torch/ops/_kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// and called through ctypes (plain C interface below).
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+// (one process per source), then linked with -shared into one library and
+// called through ctypes (plain C interface below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -3,9 +3,10 @@
 Counterpart of ``make_denoise_refiner`` in
 ``sd_video_gen_tpu/diffusion/refine.py`` with ``hi_res`` set: for every
 predicted latent, decode -> nearest-upscale to ``hi_res`` -> re-encode ->
-DDIM add_noise at ``timesteps[start_step]`` -> the remaining DDIM steps with
-guidance 0 and the empty-prompt embedding -> decode -> nearest-downscale ->
-re-encode.
+noise to the level of DDIM ``timesteps[start_step]`` -> the remaining DDIM
+steps, or ``solver_steps`` DPM-Solver++(2M) steps over the same interval
+(``sampler='dpmpp'``), with guidance 0 and the empty-prompt embedding ->
+decode -> nearest-downscale -> re-encode.
 
 Nearest resizing uses half-pixel centres ('nearest-exact'), as
 ``jax.image.resize`` does: a 512 -> 64 downscale picks source pixel 8i+4,
@@ -46,7 +47,9 @@ def default_noise(start_step: int, device) -> Callable:
 
 def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
                          num_inference_steps: int = 50, hi_res: int = 512,
-                         noise_fn: Optional[Callable] = None) -> Callable:
+                         noise_fn: Optional[Callable] = None,
+                         sampler: str = "ddim",
+                         solver_steps: Optional[int] = None) -> Callable:
     """Build the refine hook for ``ar_rollout``:
     ``refine(flat_latents (B, latent_dim), step) -> (B, latent_dim)``.
 
@@ -66,7 +69,8 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
         lat_hi = vae_hi.encode_frames(img_hi[:, None]).reshape(B, lc, h, h)
         noise = noise_fn(step, (B, h, h, lc)).to(lat_hi.device)
         den = pipe.i2i_scan(lat_hi, emb, start_step, num_inference_steps,
-                            noise=noise.permute(0, 3, 1, 2))
+                            noise=noise.permute(0, 3, 1, 2), sampler=sampler,
+                            solver_steps=solver_steps)
         img_den = vae_hi.decode_latents(den.reshape(B, -1))     # (B, hi, hi, 3)
         img_back = resize_nearest(img_den, frame_size)
         return vae_lo.encode_frames(img_back[:, None])[:, 0]

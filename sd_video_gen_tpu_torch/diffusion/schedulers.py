@@ -1,11 +1,21 @@
-"""DDIM (eta = 0) with diffusers-0.2.3 semantics, for the partial denoise.
+"""The partial denoise's samplers: DDIM (eta = 0) and DPM-Solver++(2M).
 
-Counterpart of ``DDIMSchedule`` in ``sd_video_gen_tpu/diffusion/schedulers.py``:
-scaled-linear betas; timesteps ``arange(0, N, N//S)[::-1]`` (longer than S
-when S does not divide N, and the loop runs over all of them); noise added at
-``alpha[start_step]``; x0 clipped to [-1, 1]; ``set_alpha_to_one``. Constants
-are f32, computed from f64 as the JAX package does, and applied as f32
-scalars. DPM-Solver++ and LMS are not ported yet.
+Counterparts of ``DDIMSchedule`` and ``DPMSolverPPSchedule`` in
+``sd_video_gen_tpu/diffusion/schedulers.py``.
+
+DDIM, diffusers-0.2.3 semantics: scaled-linear betas; timesteps
+``arange(0, N, N//S)[::-1]`` (longer than S when S does not divide N, and the
+loop runs over all of them); noise added at ``alpha[start_step]``; x0 clipped
+to [-1, 1]; ``set_alpha_to_one``.
+
+DPM-Solver++(2M) over the same noise interval as a DDIM tail: a grid uniform
+in lambda (half-logSNR) from ``t_start`` to t = 0, data-prediction steps with
+the 2nd-order multistep correction, the last step 1st order
+(``lower_order_final``) and, by default, the exact-x0 endpoint. x0 is not
+clipped.
+
+Constants are computed in f64 and stored as f32, as the JAX package does,
+and applied as f32 scalars. LMS is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,14 +27,19 @@ NUM_TRAIN_TIMESTEPS = 1000
 BETA_START, BETA_END = 0.00085, 0.012   # SD's scaled-linear schedule
 
 
+def _alphas_cumprod() -> np.ndarray:
+    """cumprod(1 - betas) of the scaled-linear schedule, f64, (N,)."""
+    betas = np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, NUM_TRAIN_TIMESTEPS,
+                        dtype=np.float64) ** 2
+    return np.cumprod(1.0 - betas)
+
+
 class DDIMSchedule:
     """All arrays are indexed by inference-step index i (0 = most noisy)."""
 
     def __init__(self, num_inference_steps: int = 50):
         N = NUM_TRAIN_TIMESTEPS
-        betas = np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, N,
-                            dtype=np.float64) ** 2
-        acp = np.cumprod(1.0 - betas)
+        acp = _alphas_cumprod()
         self.num_inference_steps = num_inference_steps
         step = N // num_inference_steps
         timesteps = np.arange(0, N, step)[::-1].copy()
@@ -52,3 +67,63 @@ class DDIMSchedule:
         x0 = x0.clamp(-1.0, 1.0)                                # clip_sample
         return (self._sqrt(a_prev) * x0
                 + self._sqrt(np.float32(1.0) - a_prev) * eps)
+
+
+class DPMSolverPPSchedule:
+    """DPM-Solver++(2M) in data-prediction form (Lu et al. 2022).
+
+    ``num_steps`` UNet evaluations from ``t_start`` (the DDIM grid's
+    ``timesteps[start_step]``) to t = 0. ``timesteps`` (f64, (num_steps,))
+    are the fractional t fed to the eps model; ``alpha`` / ``sigma`` (f32,
+    (num_steps + 1,)) the VP levels of the grid.
+    """
+
+    def __init__(self, num_steps: int, t_start: float,
+                 final_sigma_zero: bool = True):
+        if num_steps < 2:
+            raise ValueError("DPM-Solver++(2M) needs num_steps >= 2")
+        if not t_start > 0:
+            raise ValueError(
+                f"DPM-Solver++ needs t_start > 0 (got {t_start}): a "
+                "start_step at the end of the DDIM grid leaves no noise "
+                "interval to solve")
+        acp = _alphas_cumprod()
+        t_all = np.arange(NUM_TRAIN_TIMESTEPS, dtype=np.float64)
+        lam_all = 0.5 * np.log(acp) - 0.5 * np.log1p(-acp)  # falls with t
+        lam = np.linspace(np.interp(float(t_start), t_all, lam_all),
+                          lam_all[0], num_steps + 1)
+        ts = np.interp(lam, lam_all[::-1], t_all[::-1])
+        a2 = 1.0 / (1.0 + np.exp(-2.0 * lam))     # alpha_t^2 = sigmoid(2 lam)
+        alpha, sigma = np.sqrt(a2), np.sqrt(1.0 - a2)
+        h = lam[1:] - lam[:-1]
+        # x_{i+1} = c_x[i] x + c_d[i] D_i, D_i = w_cur[i] x0_i + w_prev[i] x0_{i-1}
+        c_x = sigma[1:] / sigma[:-1]
+        c_d = -alpha[1:] * np.expm1(-h)
+        r = np.ones(num_steps)
+        r[1:] = h[:-1] / h[1:]
+        w_cur = 1.0 + 1.0 / (2.0 * r)
+        w_prev = -1.0 / (2.0 * r)
+        w_cur[0], w_prev[0] = 1.0, 0.0            # no history yet
+        w_cur[-1], w_prev[-1] = 1.0, 0.0          # lower_order_final
+        if final_sigma_zero:                      # last level (1, 0): x_k = x0
+            alpha[-1], sigma[-1] = 1.0, 0.0
+            c_x[-1], c_d[-1] = 0.0, 1.0
+        self.timesteps = ts[:-1]
+        self.alpha = alpha.astype(np.float32)
+        self.sigma = sigma.astype(np.float32)
+        self.c_x = c_x.astype(np.float32)
+        self.c_d = c_d.astype(np.float32)
+        self.w_cur = w_cur.astype(np.float32)
+        self.w_prev = w_prev.astype(np.float32)
+
+    def add_noise_at_start(self, x, noise):
+        """Forward-noise x to the solve's first level."""
+        return float(self.alpha[0]) * x + float(self.sigma[0]) * noise
+
+    def step(self, eps, i: int, x, x0_prev):
+        """Transition i: returns (x_{i+1}, x0_i); pass x0_i as the next
+        step's ``x0_prev`` (any tensor of x's shape at i = 0, where its
+        weight is 0)."""
+        x0 = (x - float(self.sigma[i]) * eps) / float(self.alpha[i])
+        d = float(self.w_cur[i]) * x0 + float(self.w_prev[i]) * x0_prev
+        return float(self.c_x[i]) * x + float(self.c_d[i]) * d, x0

@@ -7,7 +7,9 @@ SD-v1.4 config: block_out_channels (320, 640, 1280, 1280), 2 layers per
 block, 8 heads, cross_attention_dim 768, GroupNorm eps 1e-5 (1e-6 in the
 Transformer2D input norm), GEGLU feed-forward with exact GELU, flip_sin_to_cos
 time features. Spatial self-attention (``attn1``) goes through the flash
-kernel on a GPU; cross-attention over the text context stays plain.
+kernel on a GPU; cross-attention over the text context stays plain. Every
+GroupNorm (+ SiLU) goes through the GroupNorm kernel on a GPU (the
+``nn.GroupNorm`` modules only hold its parameters).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.ops.attention import attention
+from sd_video_gen_tpu_torch.ops.groupnorm import group_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +87,9 @@ class ResnetBlock2D(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(group_norm(self.norm1, x, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(group_norm(self.norm2, h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -173,7 +176,8 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context):
         B, C, H, W = x.shape
-        h = self.proj_in(self.norm(x)).flatten(2).transpose(1, 2)  # (B, HW, C)
+        h = self.proj_in(group_norm(self.norm, x, silu=False))
+        h = h.flatten(2).transpose(1, 2)                         # (B, HW, C)
         h = self.transformer_blocks[0](h, context)
         h = h.transpose(1, 2).reshape(B, C, H, W)
         return self.proj_out(h) + x
@@ -297,5 +301,5 @@ class UNet2DCondition(nn.Module):
             for us in getattr(block, "upsamplers", []):
                 x = us(x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(group_norm(self.conv_norm_out, x, silu=True))
         return x.float()

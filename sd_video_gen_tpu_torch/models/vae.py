@@ -5,6 +5,8 @@ diffusers checkpoint keys (``encoder.down_blocks.0.resnets.0.norm1.weight``,
 ``encoder.mid_block.attentions.0.query.weight``, ...). Architecture:
 GroupNorm(32, eps 1e-6) + SiLU resnet blocks; a single-head mid-block
 self-attention over H*W tokens that goes through the flash kernel on a GPU;
+every GroupNorm (+ SiLU) goes through the GroupNorm kernel on a GPU (the
+``nn.GroupNorm`` modules only hold its parameters);
 stride-2 downsampling after a (0, 1, 0, 1) pad; nearest x2 upsampling.
 Defaults are SD-v1 AutoencoderKL: block_out_channels (128, 256, 512, 512),
 2 layers per block, 4 latent channels.
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.ops.attention import attention
+from sd_video_gen_tpu_torch.ops.groupnorm import group_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +50,8 @@ class ResnetBlock(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(group_norm(self.norm1, x, silu=True))
+        h = self.conv2(group_norm(self.norm2, h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -67,7 +70,8 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         B, C, H, W = x.shape
-        h = self.group_norm(x).flatten(2).transpose(1, 2)      # (B, HW, C)
+        h = group_norm(self.group_norm, x, silu=False)
+        h = h.flatten(2).transpose(1, 2)                        # (B, HW, C)
         q, k, v = self.query(h), self.key(h), self.value(h)
         h = attention(q, k, v, scale=C ** -0.5)
         h = self.proj_attn(h).transpose(1, 2).reshape(B, C, H, W)
@@ -149,7 +153,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(group_norm(self.conv_norm_out, x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -174,7 +178,7 @@ class Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for block in self.up_blocks:
             x = block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(group_norm(self.conv_norm_out, x, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lands in
 ``build/kernels/`` at the repository root (git-ignored) under a name that
 hashes the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing here runs at import time: the CPU
@@ -10,6 +11,12 @@ test suite imports every module without ``nvcc``.
 ``LAUNCHES`` counts kernel launches by name. Each wrapper calls
 ``count_launch`` where it launches its kernel and nowhere else, so a run can
 show which kernels its main path went through.
+
+``force_reference`` sends every dispatcher of this package (``attention``,
+``group_norm``) to its plain version at once: the on-card comparison of a
+whole model with and without the kernels. ``record_calls`` lists the
+signatures the dispatchers see, kernel or not: a dry run of a path under
+``force_reference`` gives every shape the path hands each kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -34,11 +41,51 @@ BUILD = {"seconds": 0.0, "path": None}   # nvcc time (0 if already built)
 
 _LIB = None
 _LOCK = threading.Lock()
+_FORCE: list = []
+_RECORDERS: list = []
 
 
 def count_launch(name: str) -> None:
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+class force_reference:
+    """Context manager sending every kernel dispatch in this process to the
+    plain version."""
+
+    def __enter__(self):
+        _FORCE.append("reference")
+        return self
+
+    def __exit__(self, *exc):
+        _FORCE.pop()
+        return False
+
+
+def forced() -> bool:
+    """True inside ``force_reference``."""
+    return bool(_FORCE)
+
+
+class record_calls:
+    """Context manager counting, by (kernel name, call signature), the
+    dispatcher calls made in this process while it is open (``.calls``)."""
+
+    def __enter__(self):
+        self.calls = collections.Counter()
+        _RECORDERS.append(self.calls)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDERS.remove(self.calls)
+        return False
+
+
+def record(name: str, signature: tuple) -> None:
+    """Called by each dispatcher for every call its kernel could take."""
+    for calls in _RECORDERS:
+        calls[(name, signature)] += 1
 
 
 def _nvcc() -> str:
@@ -63,15 +110,35 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [out.with_name(f"{p.stem}.{digest}.{os.getpid()}.o")
+            for p in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                             for p, o in zip(sources, objs))]
+        logs = [p.communicate()[0] for p in procs]   # waits for every one
+        _run_ok(procs, logs)
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _run_ok([link], [link.stdout])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     BUILD["seconds"] = time.perf_counter() - t0
     return out
+
+
+def _run_ok(procs, logs) -> None:
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(p.args)}\n{text}")
 
 
 def library() -> ctypes.CDLL:
@@ -84,6 +151,12 @@ def library() -> ctypes.CDLL:
             lib.sdvg_flash_attention.argtypes = [p, p, p, p, i, i, i,
                                                  ctypes.c_float, i, p]
             lib.sdvg_flash_attention.restype = i
+            ll = ctypes.c_longlong
+            lib.sdvg_groupnorm_silu_workspace.argtypes = [i, i, ll, i]
+            lib.sdvg_groupnorm_silu_workspace.restype = ll
+            lib.sdvg_groupnorm_silu.argtypes = [p, p, p, p, p, i, i, ll, i,
+                                                ctypes.c_float, i, i, p]
+            lib.sdvg_groupnorm_silu.restype = i
             lib.sdvg_error_string.argtypes = [i]
             lib.sdvg_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -21,7 +21,6 @@ from sd_video_gen_tpu_torch.ops import _kernels
 
 MAX_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FORCE: list = []
 
 
 def reference_attention(q, k, v, scale: float | None = None):
@@ -64,27 +63,15 @@ def flash_attention(q, k, v, scale: float | None = None):
     return out
 
 
-class force_reference:
-    """Context manager sending every ``attention`` call in this process to
-    the plain version: the on-card comparison of a whole model with and
-    without the kernel."""
-
-    def __enter__(self):
-        _FORCE.append("reference")
-        return self
-
-    def __exit__(self, *exc):
-        _FORCE.pop()
-        return False
-
-
 def attention(q, k, v, scale: float | None = None, force: str | None = None):
     """Dispatch (BH, T, d) attention: the kernel for CUDA self-attention; the
     plain version on the CPU, for cross-attention, and with
-    ``force='reference'`` or under ``force_reference``."""
+    ``force='reference'`` or under ``_kernels.force_reference``."""
     if force not in (None, "reference"):
         raise ValueError(f"attention: unknown force={force!r}")
-    if (q.device.type == "cpu" or force or _FORCE
+    if q.shape == k.shape:
+        _kernels.record("flash_attention", (tuple(q.shape), q.dtype, scale))
+    if (q.device.type == "cpu" or force or _kernels.forced()
             or q.shape != k.shape):
         return reference_attention(q, k, v, scale)
     if q.device.type != "cuda":

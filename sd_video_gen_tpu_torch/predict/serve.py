@@ -9,10 +9,12 @@ then answers length-prefixed requests on a Unix socket until ``shutdown``:
       -> {"shape": [B, T_out, H, W, 3], "is_pred": [...], "latency_s": ..}
          + raw uint8 images (context minus its last frame, then predictions)
 
-Ragged batches are padded to ``batch_clips`` and sliced on reply. The wire
-framing and the client helpers (``request``, ``ping``, ``shutdown``,
-``wait_ready``) are the JAX package's own: that module is numpy + socket at
-import time, so both servers speak exactly one protocol.
+Ragged batches are padded to ``batch_clips`` and sliced on reply. Framing,
+one request per connection: 8-byte big-endian header length, JSON header,
+raw payload (the frames or images, ``prod(shape)`` bytes). It is the JAX
+package's protocol byte for byte, so one client speaks to both servers; the
+client helpers (``request``, ``ping``, ``shutdown``, ``wait_ready``) are
+here too, so the port needs nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -20,14 +22,85 @@ from __future__ import annotations
 import json
 import os
 import socket
+import struct
 import time
 import traceback
 
 import numpy as np
 import torch
 
-from sd_video_gen_tpu.predict.serve import (_recv_msg, _send_msg, ping,  # noqa: F401
-                                            request, shutdown, wait_ready)
+_LEN = struct.Struct(">Q")
+
+
+def _send_msg(sock: socket.socket, header: dict, payload: bytes = b""):
+    raw = json.dumps(header).encode()
+    sock.sendall(_LEN.pack(len(raw)) + raw + payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(1 << 20, n - len(buf)))
+        if not chunk:
+            raise ConnectionError("peer closed mid-message")
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def _recv_msg(sock: socket.socket) -> tuple[dict, bytes]:
+    (hlen,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    header = json.loads(_recv_exact(sock, hlen))
+    n = int(np.prod(header["shape"])) if "shape" in header else 0
+    return header, _recv_exact(sock, n) if n else b""
+
+
+def _call(sock_path: str, header: dict, payload: bytes = b"",
+          timeout_s: float = 10.0) -> tuple[dict, bytes]:
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.connect(sock_path)
+        s.settimeout(timeout_s)
+        _send_msg(s, header, payload)
+        return _recv_msg(s)
+
+
+def ping(sock_path: str, timeout_s: float = 10.0) -> dict:
+    return _call(sock_path, {"op": "ping"}, timeout_s=timeout_s)[0]
+
+
+def shutdown(sock_path: str, timeout_s: float = 10.0) -> dict:
+    return _call(sock_path, {"op": "shutdown"}, timeout_s=timeout_s)[0]
+
+
+def request(sock_path: str, frames: np.ndarray,
+            timeout_s: float = 600.0) -> tuple[np.ndarray, list[bool], dict]:
+    """One round trip: uint8 frames (B, T, H, W, 3) -> ``(images (B, T_out,
+    H, W, 3) uint8, is_pred flags, header)``."""
+    frames = np.ascontiguousarray(frames, dtype=np.uint8)
+    if frames.ndim != 5 or frames.shape[-1] != 3:
+        raise ValueError(f"frames must be (B,T,H,W,3) uint8, got "
+                         f"{frames.shape}")
+    resp, payload = _call(sock_path, {"op": "predict",
+                                      "shape": list(frames.shape)},
+                          frames.tobytes(), timeout_s)
+    if "error" in resp:
+        raise RuntimeError(f"server error: {resp['error']}")
+    imgs = np.frombuffer(payload, np.uint8).reshape(resp["shape"])
+    return imgs, resp["is_pred"], resp
+
+
+def wait_ready(sock_path: str, deadline_s: float = 900.0,
+               poll_s: float = 1.0) -> float:
+    """Block until the server answers ping; returns the wait in seconds."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            ping(sock_path)
+            return time.perf_counter() - t0
+        except OSError:  # ConnectionError is one
+            if time.perf_counter() - t0 > deadline_s:
+                raise TimeoutError(
+                    f"server at {sock_path} not ready in {deadline_s}s")
+            time.sleep(poll_s)
 
 
 def serve(sock_path: str, predict, decode, *, batch_clips: int,

@@ -8,16 +8,23 @@ JAX is not installed (the repository's conftest imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 Tolerance: the kernel against the plain version computed in f32 from the same
-inputs (TF32 off). f32 atol 1e-4: FMA order over up to 4096 keys. bf16 atol
-2e-2: p is rounded to bf16 before p.v and the output to bf16, as in the TPU
-kernel.
+inputs (TF32 off). Flash attention: f32 atol 1e-4, FMA order over up to 4096
+keys; bf16 atol 2e-2, p is rounded to bf16 before p.v and the output to
+bf16, as in the TPU kernel. GroupNorm+SiLU, |out - ref| <= rtol |ref| +
+atol: f32 (1e-5, 1e-5), the same two-pass statistics summed in another
+order; bf16 (2^-8, 1e-5), the one final rounding (half an ulp) plus that f32
+noise.
 """
 
 import pytest
 import torch
+from torch import nn
 
 from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.ops import attention as patt
+from sd_video_gen_tpu_torch.ops import groupnorm as pgn
+
+GN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -8, 1e-5)}
 
 
 @pytest.fixture
@@ -65,3 +72,58 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
         patt.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="equal"):
         patt.flash_attention(q, q[:, :4], q[:, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape,groups", [
+    ((1, 256, 512, 512), 32), ((8, 128, 256, 256), 32),
+    ((8, 320, 64, 64), 32), ((8, 2560, 8, 8), 32), ((1, 1280, 8, 8), 32),
+    ((40, 512, 8, 8), 32),
+    ((1, 12, 5, 7), 3), ((2, 6, 3, 3), 2), ((3, 64, 1, 1), 32),
+    ((1, 8, 1, 4099), 1)])
+def test_groupnorm_silu_matches_plain(cuda, shape, groups, silu, eps, dtype):
+    """Path shapes (the largest slab, VAE and UNet levels at B=1 and 8), plus
+    rows that are not a whole number of 16-byte vectors (scalar variant),
+    ragged chunks, 1x1 maps and a group larger than one chunk at HW odd."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    C = shape[1]
+    w = (1 + 0.5 * torch.randn(C, generator=g, device=cuda)).to(dtype)
+    b = (0.5 * torch.randn(C, generator=g, device=cuda)).to(dtype)
+    norm = nn.GroupNorm(groups, C, eps=eps).to(cuda, dtype)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    before = _kernels.LAUNCHES["groupnorm_silu"]
+    out = pgn.group_norm(norm, x, silu)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["groupnorm_silu"] == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = pgn.groupnorm_silu_reference(x.float(), w.float(), b.float(),
+                                       groups, eps, silu)
+    rtol, atol = GN_TOL[dtype]
+    assert ((out.float() - ref).abs() <= rtol * ref.abs() + atol).all()
+    with _kernels.force_reference():
+        pgn.group_norm(norm, x, silu)
+    assert _kernels.LAUNCHES["groupnorm_silu"] == before + 1
+
+
+@pytest.mark.cuda
+def test_groupnorm_silu_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 8, 4, 4, device=cuda)
+    w = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        pgn.groupnorm_silu(x.half(), w.half(), w.half(), 4)
+    with pytest.raises(ValueError, match="dtypes"):
+        pgn.groupnorm_silu(x, w.bfloat16(), w.bfloat16(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pgn.groupnorm_silu(x.transpose(2, 3), w, w, 4)
+    with pytest.raises(ValueError, match="do not split"):
+        pgn.groupnorm_silu(x, w, w, 3)
+    with pytest.raises(ValueError, match=r"\(B, C, H, W\)"):
+        pgn.groupnorm_silu(x[0], w, w, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        pgn.groupnorm_silu(x.cpu(), w.cpu(), w.cpu(), 4)

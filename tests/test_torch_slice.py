@@ -1,7 +1,9 @@
 """The port's denoised AR serving slice against the JAX package on the CPU:
 ar_rollout (full and short context), make_predict_fn with the partial-denoise
-refiner (JAX's fold-in noise injected), the serve loop over a socket, and
-import hygiene (no jax / flax / optax / yaml / cv2 anywhere in the port or in
+refiner (JAX's fold-in noise injected) with DDIM at B=2 and DPM-Solver++ at
+B=3, the serve loop over a socket (ragged requests padded), its wire framing
+against the JAX package's, and import hygiene (no jax / flax / optax / yaml
+/ cv2, and nothing of the JAX package, anywhere in the port or in
 chip_smoke.py's imports).
 
 Tolerance: f32 on both sides. The rollout without refinement agrees to
@@ -13,6 +15,7 @@ pixels.
 """
 
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -32,6 +35,7 @@ from sd_video_gen_tpu.models.clip_text import CLIPTextConfig as JCLIPConfig
 from sd_video_gen_tpu.models.unet import UNetConfig as JUNetConfig
 from sd_video_gen_tpu.models.vae import VAEConfig as JVAEConfig
 from sd_video_gen_tpu.ops.rollout import ar_rollout as jar_rollout
+from sd_video_gen_tpu.predict import serve as JS
 from sd_video_gen_tpu.predict.predict import make_predict_fn as jmake_predict
 from sd_video_gen_tpu_torch.diffusion.refine import (default_noise,
                                                      make_denoise_refiner,
@@ -46,6 +50,7 @@ from torch_port_common import (TINY_CLIP, TINY_UNET, TINY_VAE, clip_pair, t,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LO, HI, START, STEPS, PRED = 8, 16, 8, 10, 3   # 2 DDIM steps per frame
+SOLVER_STEPS = 3                                # DPM-Solver++ over the same
 
 
 @pytest.mark.parametrize("context_frames", [5, 2])
@@ -89,8 +94,9 @@ def test_default_noise_is_fresh_per_step_and_reproducible():
     assert not torch.equal(a, default_noise(41, "cpu")(1, (2, 8, 8, 4)))
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
+def _slice(sampler="ddim", solver_steps=None, batch=2):
+    """The JAX and the port's predict over the same tiny models, with the
+    refiner's sampler, and ``batch`` clips of frames."""
     jvae, vparams, pvae = vae_pair(seed=20)
     _, uparams, punet = unet_pair(seed=21)
     _, cparams, pclip = clip_pair(seed=22)
@@ -102,7 +108,8 @@ def slice_pair():
                         clip_cfg=JCLIPConfig(**TINY_CLIP))
     jrefiner = jmake_refiner(types.SimpleNamespace(frame_size=LO), START,
                              pipeline=jpipe, num_inference_steps=STEPS,
-                             hi_res=HI)
+                             hi_res=HI, sampler=sampler,
+                             solver_steps=solver_steps)
     jpredict = jmake_predict(jm, JVAECodec(LO, params=vparams, cfg=vcfg),
                              PRED, window=5, refiner=jrefiner)
 
@@ -112,22 +119,34 @@ def slice_pair():
 
     pipe = SDPipeline(pvae, punet, pclip)
     refiner = make_denoise_refiner(pipe, LO, START, STEPS, hi_res=HI,
-                                   noise_fn=jax_noise)
+                                   noise_fn=jax_noise, sampler=sampler,
+                                   solver_steps=solver_steps)
     codec = VAECodec(LO, pvae)
     predict = make_predict_fn(pm, codec, PRED, window=5, refiner=refiner)
     frames = np.random.default_rng(24).integers(
-        0, 256, (2, 5, LO, LO, 3)).astype(np.uint8)
+        0, 256, (batch, 5, LO, LO, 3)).astype(np.uint8)
     return dict(jax=(jpredict, tparams, jpipe), port=(predict, codec),
                 frames=frames)
 
 
-def test_predict_with_refiner_matches_jax(slice_pair):
-    jpredict, tparams, jpipe = slice_pair["jax"]
-    predict, codec = slice_pair["port"]
-    frames = slice_pair["frames"]
+@pytest.fixture(scope="module")
+def slice_pair():
+    return _slice()
+
+
+@pytest.fixture(scope="module")
+def dpmpp_pair():
+    return _slice("dpmpp", SOLVER_STEPS, batch=3)
+
+
+def _check_predict_matches_jax(pair):
+    jpredict, tparams, jpipe = pair["jax"]
+    predict, codec = pair["port"]
+    frames = pair["frames"]
     jctx, jpreds = jpredict(tparams, jnp.asarray(frames))
     ctx, preds = predict(frames)
-    assert preds.shape == jpreds.shape == (2, PRED, codec.latent_dim)
+    assert preds.shape == jpreds.shape == (len(frames), PRED,
+                                           codec.latent_dim)
     np.testing.assert_allclose(ctx.numpy(), np.asarray(jctx),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(preds.numpy(), np.asarray(jpreds), atol=1e-3)
@@ -140,26 +159,66 @@ def test_predict_with_refiner_matches_jax(slice_pair):
     assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
 
 
-def test_serve_answers_a_request_over_a_socket(slice_pair, tmp_path):
-    predict, codec = slice_pair["port"]
-    frames = slice_pair["frames"]
+def test_predict_with_refiner_matches_jax(slice_pair):
+    _check_predict_matches_jax(slice_pair)
+
+
+def test_predict_with_dpmpp_refiner_at_b3_matches_jax(dpmpp_pair):
+    _check_predict_matches_jax(dpmpp_pair)
+
+
+def _check_serve_pads_a_ragged_request(pair, tmp_path, batch_clips):
+    predict, codec = pair["port"]
+    sent = pair["frames"][:batch_clips - 1]   # ragged: padded to batch_clips
     sock = str(tmp_path / "s.sock")
     th = threading.Thread(target=S.serve, args=(sock, predict,
                                                 codec.decode_latents),
-                          kwargs=dict(batch_clips=2, frames_per_clip=5,
-                                      frame_size=LO), daemon=True)
+                          kwargs=dict(batch_clips=batch_clips,
+                                      frames_per_clip=5, frame_size=LO),
+                          daemon=True)
     th.start()
     S.wait_ready(sock, deadline_s=120, poll_s=0.2)
-    imgs, is_pred, hdr = S.request(sock, frames[:1])   # ragged: padded to 2
-    assert imgs.shape == (1, 4 + PRED, LO, LO, 3) and imgs.dtype == np.uint8
+    n = len(sent)
+    imgs, is_pred, hdr = S.request(sock, sent)
+    assert imgs.shape == (n, 4 + PRED, LO, LO, 3) and imgs.dtype == np.uint8
     assert is_pred == [False] * 4 + [True] * PRED
-    ctx, preds = predict(frames[:1].repeat(2, axis=0))
-    seq = torch.cat([ctx[:, :-1], preds], dim=1)[:1]
+    padded = np.concatenate([sent, sent[-1:].repeat(batch_clips - n, 0)])
+    ctx, preds = predict(padded)
+    seq = torch.cat([ctx[:, :-1], preds], dim=1)[:n]
     want = codec.decode_latents(seq.reshape(-1, codec.latent_dim)).numpy()
-    np.testing.assert_array_equal(imgs[0], want)
-    assert S.shutdown(sock)["served"] == 1
+    np.testing.assert_array_equal(imgs, want.reshape(imgs.shape))
+    assert S.shutdown(sock)["served"] == n
     th.join(timeout=30)
     assert not th.is_alive()
+
+
+def test_serve_answers_a_request_over_a_socket(slice_pair, tmp_path):
+    _check_serve_pads_a_ragged_request(slice_pair, tmp_path, batch_clips=2)
+
+
+def test_serve_at_batch_clips_3_pads_a_2_clip_request(dpmpp_pair, tmp_path):
+    _check_serve_pads_a_ragged_request(dpmpp_pair, tmp_path, batch_clips=3)
+
+
+@pytest.mark.parametrize("header,payload", [
+    ({"op": "ping"}, b""),
+    ({"op": "predict", "shape": [1, 2, 2, 2, 3]}, bytes(range(24)))])
+def test_wire_framing_is_the_jax_packages_byte_for_byte(header, payload):
+    """The port's server and client speak the JAX package's protocol."""
+    def sent_by(send):
+        a, b = socket.socketpair()
+        with a, b:
+            send(a, header, payload)
+            a.shutdown(socket.SHUT_WR)
+            return b"".join(iter(lambda: b.recv(1 << 16), b""))
+    raw = sent_by(S._send_msg)
+    assert raw == sent_by(JS._send_msg)
+    for send, recv in [(S._send_msg, JS._recv_msg), (JS._send_msg,
+                                                     S._recv_msg)]:
+        a, b = socket.socketpair()
+        with a, b:
+            send(a, header, payload)
+            assert recv(b) == (header, payload)
 
 
 def test_port_imports_no_jax_flax_optax_yaml_cv2():
@@ -170,16 +229,18 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
         for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py"))
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'yaml', 'cv2'):\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'cv2', 'sd_video_gen_tpu'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    __import__(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'yaml', 'cv2', 'jaxlib')\n"
+        "       ('jax', 'flax', 'optax', 'yaml', 'cv2', 'jaxlib',\n"
+        "        'sd_video_gen_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
-    assert "sd_video_gen_tpu_torch.ops.attention" in mods
+    assert {"sd_video_gen_tpu_torch.ops.attention",
+            "sd_video_gen_tpu_torch.ops.groupnorm"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
