@@ -12,12 +12,17 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               versions records every shape each kernel is handed there; flash
               attention and GroupNorm+SiLU are held against their plain
               PyTorch versions at each of those shapes, bf16 and f32, timed
-              with CUDA events (plain, kernel, kernel, plain)
+              with CUDA events (plain, kernel, kernel, plain); each flash
+              row also names the kernel's body (``attention.route``: wgmma
+              or fma), its TFLOP/s (4 BH T^2 d / time) and, for scale only,
+              torch's SDPA time on the same inputs (a yardstick, not a
+              port)
   4. serve    ``vae_denoise_ar4``: the port's ``serve`` loop at
               batch_clips=1 with the 10-step DDIM tail answers predict
               requests over a Unix socket; reply shapes, finite latents and
               the exact launch count of each kernel are checked, warm
-              predicted frames/s printed
+              predicted frames/s printed; every flash launch of the path
+              must have taken the tensor-core (wgmma) body
   5. serve8   ``vae_denoise_ar4_8streams_dpmpp5``: the same at batch_clips=8
               with the 5-eval DPM-Solver++(2M) tail; three 8-clip requests
               and one ragged 3-clip request
@@ -61,8 +66,9 @@ from sd_video_gen_tpu_torch.models.unet import (Transformer2D,
 from sd_video_gen_tpu_torch.models.vae import (AttnBlock, AutoencoderKL,
                                                VAEConfig)
 from sd_video_gen_tpu_torch.ops import _kernels
-from sd_video_gen_tpu_torch.ops.attention import (flash_attention,
-                                                  reference_attention)
+from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
+                                                  flash_attention,
+                                                  reference_attention, route)
 from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
                                                   groupnorm_silu_reference)
 from sd_video_gen_tpu_torch.predict import serve as S
@@ -246,8 +252,16 @@ def check_attention(sig, dtype) -> dict:
     del out, ref
     ms, plain_ms = timed(lambda: reference_attention(q, k, v, scale),
                          lambda: flash_attention(q, k, v, scale))
+    # For scale only: torch's fused attention on the same inputs, as
+    # (1, BH, T, d) so that its fused backends may take it.
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], scale=scale), 20)
+    BH, T, d = shape
     return dict(max_abs_err=err, ok=err <= ATTN_ATOL[dtype], ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms,
+                route=route(dtype, d, (q.data_ptr(), k.data_ptr(),
+                                       v.data_ptr())),
+                tflops=4 * BH * T * T * d / ms / 1e9, sdpa_ms=sdpa_ms)
 
 
 def check_groupnorm(sig, dtype) -> dict:
@@ -282,10 +296,13 @@ def phase_kernel(sigs) -> dict:
                        dtype=str(dtype).split(".")[-1], calls=calls,
                        **check(sig, dtype))
             rows.append(row)
+            extra = (f", route {row['route']}, {row['tflops']:.1f} TFLOP/s, "
+                     f"sdpa (yardstick, not a port) {row['sdpa_ms']:.4f} ms"
+                     if name == "flash_attention" else "")
             log(f"kernel: {name} {tuple(sig[0])} {row['args']} "
                 f"{row['dtype']} x{calls}: err {row['max_abs_err']:.2e} "
                 f"{'ok' if row['ok'] else 'FAIL'}, {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms")
+                f"{row['plain_ms']:.4f} ms{extra}")
             if not row["ok"]:
                 failures.append(row)
         torch.cuda.empty_cache()
@@ -363,6 +380,7 @@ def phase_serve(models, path) -> dict:
             errors.append(e)
 
     _kernels.LAUNCHES.clear()                     # main path starts here
+    ROUTE_LAUNCHES.clear()
     t_start = time.perf_counter()
     server = threading.Thread(target=run_server, daemon=True)
     server.start()
@@ -397,6 +415,7 @@ def phase_serve(models, path) -> dict:
         torch.cuda.synchronize()
         sock_dir.cleanup()
     launches = dict(_kernels.LAUNCHES)             # main path ends here
+    bodies = dict(ROUTE_LAUNCHES)
     if errors:
         raise errors[0]
     if server.is_alive():
@@ -411,7 +430,10 @@ def phase_serve(models, path) -> dict:
                                  f"{is_pred}; expected {want_shape} uint8 "
                                  f"{want_flags}")
     expected = expected_launches(models, path)
-    log(f"{name}: launches {launches}")
+    log(f"{name}: launches {launches}; flash attention by body {bodies}")
+    if bodies.get("wgmma", 0) != launches.get("flash_attention", 0):
+        raise AssertionError(f"{name}: flash attention left the tensor-core "
+                             f"body: {bodies}")
     for kernel, want in expected.items():
         if launches.get(kernel, 0) != want:
             raise AssertionError(f"{name}: {kernel} launched "

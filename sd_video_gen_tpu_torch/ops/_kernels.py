@@ -4,8 +4,9 @@ The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source,
 all started together, and linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The library lands in
 ``build/kernels/`` at the repository root (git-ignored) under a name that
-hashes the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time: the CPU
+hashes every file under ``csrc/`` (headers included) and the flags
+(``source_digest``), so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import time: the CPU
 test suite imports every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper calls
@@ -98,12 +99,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def source_digest(csrc: Path = CSRC, flags=NVCC_FLAGS) -> str:
+    """Hash of every file under ``csrc`` (name and bytes, any suffix: an
+    edited header rebuilds too) and of the nvcc flags."""
+    h = hashlib.sha256()
+    for p in sorted(f for f in csrc.rglob("*") if f.is_file()):
+        name = p.relative_to(csrc).as_posix().encode()
+        h.update(len(name).to_bytes(8, "little") + name)
+        data = p.read_bytes()
+        h.update(len(data).to_bytes(8, "little") + data)
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless a library of the same sources exists."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in sources)
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest()
     out = BUILD_DIR / f"libsdvg_kernels_{digest}.so"
     BUILD["path"] = str(out)
     if out.exists():
@@ -151,6 +163,9 @@ def library() -> ctypes.CDLL:
             lib.sdvg_flash_attention.argtypes = [p, p, p, p, i, i, i,
                                                  ctypes.c_float, i, p]
             lib.sdvg_flash_attention.restype = i
+            lib.sdvg_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i,
+                                                       ctypes.c_float, p]
+            lib.sdvg_flash_attention_wgmma.restype = i
             ll = ctypes.c_longlong
             lib.sdvg_groupnorm_silu_workspace.argtypes = [i, i, ll, i]
             lib.sdvg_groupnorm_silu_workspace.restype = ll

@@ -4,7 +4,9 @@ Counterpart of ``sd_video_gen_tpu/ops/attention.py``. The SD UNet's and VAE's
 spatial self-attention (up to 4096 tokens at 512px) go through
 ``flash_attention``, which launches ``csrc/flash_attention.cu`` (online
 softmax over key tiles, O(T) memory); ``reference_attention`` is the plain
-einsum -> f32 softmax -> einsum version it is held against.
+einsum -> f32 softmax -> einsum version it is held against. ``route`` picks
+the kernel's body by shape before launch: the tensor-core body (wgmma + TMA)
+for bf16 where TMA can serve, the f32-FMA body otherwise.
 
 Dispatch (``attention``): CPU tensors take the plain version; CUDA tensors
 with ``q.shape == k.shape`` always take the kernel. Cross-attention (77
@@ -15,12 +17,29 @@ this card.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from sd_video_gen_tpu_torch.ops import _kernels
 
 MAX_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Launches of ``flash_attention`` by body, beside its count in
+# ``_kernels.LAUNCHES``: a run can show which body its path took.
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def route(dtype, d: int, data_ptrs) -> str:
+    """The kernel body for (dtype, head dim, q/k/v data pointers): ``"wgmma"``
+    (tensor cores, TMA loads) for bf16 with d a multiple of 8 and every
+    pointer 16-byte aligned, which TMA needs (its row stride must be a
+    multiple of 16 bytes); ``"fma"`` for everything else, f32 included
+    (TF32 tensor cores would break the f32 tolerance)."""
+    if (dtype == torch.bfloat16 and d % 8 == 0
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return "wgmma"
+    return "fma"
 
 
 def reference_attention(q, k, v, scale: float | None = None):
@@ -51,15 +70,22 @@ def flash_attention(q, k, v, scale: float | None = None):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     scale = scale if scale is not None else d ** -0.5
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    body = route(q.dtype, d, ptrs)
     lib = _kernels.library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.sdvg_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, T, d, float(scale), _DTYPE_CODES[q.dtype], stream)
-    _kernels.check(err, "flash_attention")
+        if body == "wgmma":
+            err = lib.sdvg_flash_attention_wgmma(
+                *ptrs, out.data_ptr(), BH, T, d, float(scale), stream)
+        else:
+            err = lib.sdvg_flash_attention(
+                *ptrs, out.data_ptr(), BH, T, d, float(scale),
+                _DTYPE_CODES[q.dtype], stream)
+    _kernels.check(err, f"flash_attention ({body})")
     _kernels.count_launch("flash_attention")
+    ROUTE_LAUNCHES[body] += 1
     return out
 
 

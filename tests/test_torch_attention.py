@@ -60,3 +60,26 @@ def test_cpu_dispatch_takes_plain_path_and_never_launches():
         patt.attention(q, k, v, force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         patt.flash_attention(q, k, v)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    patt.attention(qb, kb, vb)
+    assert _kernels.LAUNCHES["flash_attention"] == before
+    assert sum(patt.ROUTE_LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("dtype,d,ptrs,want", [
+    (torch.bfloat16, 40, (0, 16, 4096), "wgmma"),
+    (torch.bfloat16, 512, (1 << 20,) * 3, "wgmma"),
+    (torch.bfloat16, 8, (32, 48, 64), "wgmma"),
+    (torch.bfloat16, 36, (0, 16, 32), "fma"),
+    (torch.bfloat16, 44, (0, 16, 32), "fma"),
+    (torch.bfloat16, 40, (2, 16, 32), "fma"),
+    (torch.bfloat16, 80, (0, 16, 40), "fma"),
+    (torch.float32, 40, (0, 16, 32), "fma"),
+    (torch.float32, 512, (0, 16, 32), "fma"),
+])
+def test_route_picks_the_body_by_dtype_head_dim_and_alignment(dtype, d, ptrs,
+                                                              want):
+    """bf16 with d % 8 == 0 and 16-byte aligned pointers takes the
+    tensor-core body (TMA needs both); any other d, an unaligned pointer or
+    f32 takes the FMA body."""
+    assert patt.route(dtype, d, ptrs) == want

@@ -10,7 +10,8 @@ JAX is not installed (the repository's conftest imports JAX, hence
 Tolerance: the kernel against the plain version computed in f32 from the same
 inputs (TF32 off). Flash attention: f32 atol 1e-4, FMA order over up to 4096
 keys; bf16 atol 2e-2, p is rounded to bf16 before p.v and the output to
-bf16, as in the TPU kernel. GroupNorm+SiLU, |out - ref| <= rtol |ref| +
+bf16, as in the TPU kernel. Every flash case checks which body
+(``attention.route``) it took. GroupNorm+SiLU, |out - ref| <= rtol |ref| +
 atol: f32 (1e-5, 1e-5), the same two-pass statistics summed in another
 order; bf16 (2^-8, 1e-5), the one final rounding (half an ulp) plus that f32
 noise.
@@ -43,20 +44,57 @@ def cuda():
                                    (8, 256, 160), (8, 64, 160),
                                    (1, 4096, 512), (5, 64, 512),
                                    (3, 77, 40), (2, 100, 72), (1, 33, 512),
-                                   (2, 1, 8)])
+                                   (2, 1, 8), (64, 4096, 40), (64, 1024, 80),
+                                   (8, 4096, 512), (40, 64, 512),
+                                   (3, 65, 160), (2, 130, 40), (2, 65, 512),
+                                   (2, 130, 256), (2, 65, 128), (2, 64, 64),
+                                   (1, 36, 36)])
 def test_flash_attention_matches_plain(cuda, shape, dtype, atol):
-    """Path shapes, plus ragged T and head dims between the kernel's buckets."""
+    """Path shapes, plus ragged T (T = 65 and 130: one or two keys past a
+    tile on the two-stage ring), head dims between the kernel's buckets (run
+    in the next bucket up) and d = 36 (not a multiple of 8: the FMA body in
+    bf16 too)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for _ in range(3))
-    scale = shape[-1] ** -0.5
+    _check_flash(q, k, v, dtype, atol)
+
+
+def _check_flash(q, k, v, dtype, atol, want_route=None):
+    scale = q.shape[-1] ** -0.5
+    body = patt.route(dtype, q.shape[-1],
+                      (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    if want_route is not None:
+        assert body == want_route
     before = _kernels.LAUNCHES["flash_attention"]
+    before_body = patt.ROUTE_LAUNCHES[body]
     out = patt.attention(q, k, v, scale)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["flash_attention"] == before + 1
+    assert patt.ROUTE_LAUNCHES[body] == before_body + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = patt.reference_attention(q.float(), k.float(), v.float(), scale)
     assert (out.float() - ref).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", [((2, 64, 40), "wgmma"),
+                                        ((2, 64, 36), "fma"),
+                                        ((2, 130, 512), "wgmma")])
+def test_flash_attention_bf16_routes(cuda, shape, want):
+    """bf16: aligned with d % 8 == 0 takes the tensor-core body, d = 36 the
+    FMA body; an offset view whose data pointer is not 16-byte aligned
+    (contiguous, as the caller made it) takes the FMA body, as ``route``
+    says, and still matches."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    _check_flash(q, k, v, torch.bfloat16, 2e-2, want)
+    n = q.numel()
+    flat = torch.randn(n + 1, generator=g, device=cuda).bfloat16()
+    q_off = flat[1:].view(shape)          # 2 bytes past an aligned start
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 == 2
+    _check_flash(q_off, k, v, torch.bfloat16, 2e-2, "fma")
 
 
 @pytest.mark.cuda
