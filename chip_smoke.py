@@ -1,6 +1,6 @@
 """Drive the PyTorch port (``sd_video_gen_tpu_torch``) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--tune]
 
 Phases (any failure ends the run with a non-zero exit; there is no CPU path):
 
@@ -14,15 +14,24 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               PyTorch versions at each of those shapes, bf16 and f32, timed
               with CUDA events (plain, kernel, kernel, plain); each flash
               row also names the kernel's body (``attention.route``: wgmma
-              or fma), its TFLOP/s (4 BH T^2 d / time) and, for scale only,
-              torch's SDPA time on the same inputs (a yardstick, not a
-              port)
+              or fma), its TFLOP/s (4 BH T^2 d / time), its bound and, for
+              scale only, torch's SDPA time on the same inputs (a
+              yardstick, not a port); each GroupNorm signature is checked
+              in the memory format the path hands it (channels-last: the
+              NHWC body, with its mode: cluster or streaming) and
+              once more as a contiguous tensor (the NCHW body), each row
+              with its bound
+              (one read and one write at the memory rate), GB/s and
+              torch's ``F.silu(F.group_norm(...))`` time in the same memory
+              format (a yardstick); the GroupNorm wrapper's host cost per
+              call is timed on a tiny shape
   4. serve    ``vae_denoise_ar4``: the port's ``serve`` loop at
               batch_clips=1 with the 10-step DDIM tail answers predict
               requests over a Unix socket; reply shapes, finite latents and
               the exact launch count of each kernel are checked, warm
               predicted frames/s printed; every flash launch of the path
-              must have taken the tensor-core (wgmma) body
+              must have taken the tensor-core (wgmma) body and every
+              GroupNorm launch the NHWC body
   5. serve8   ``vae_denoise_ar4_8streams_dpmpp5``: the same at batch_clips=8
               with the 5-eval DPM-Solver++(2M) tail; three 8-clip requests
               and one ragged 3-clip request
@@ -30,6 +39,12 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               kernels against the same with the plain versions (relative
               L2), and the whole slice at small widths in f32 on the card
               (kernels) against the CPU (plain) with each sampler
+  7. profile  only with ``--profile``: one warm batch of each path (predict
+              + final decode, after two unprofiled ones) under
+              torch.profiler, device time bucketed by kernel name
+  8. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+              dry run, the NHWC body as planned, with each of its modes
+              pinned, and the NCHW body, device time inside CUDA graphs
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and matmul
@@ -38,6 +53,8 @@ so every f32 comparison runs in full f32.
 
 from __future__ import annotations
 
+import argparse
+import collections
 import copy
 import json
 import os
@@ -69,6 +86,7 @@ from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
                                                   flash_attention,
                                                   reference_attention, route)
+from sd_video_gen_tpu_torch.ops import groupnorm as gn
 from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
                                                   groupnorm_silu_reference)
 from sd_video_gen_tpu_torch.predict import serve as S
@@ -104,12 +122,16 @@ VAE_REL_L2 = 4e-2
 # boundary may flip a level and move the re-encoded latent.
 SMALL_LATENT_ATOL = 1e-3
 SMALL_PIXEL_FLIP_SHARE = 0.01
+# The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 KERNELS = {
     "flash_attention": dict(
         source="sd_video_gen_tpu_torch/csrc/flash_attention.cu",
         replaces="sd_video_gen_tpu/ops/attention.py:63"),
     "groupnorm_silu": dict(
-        source="sd_video_gen_tpu_torch/csrc/groupnorm_silu.cu",
+        source="sd_video_gen_tpu_torch/csrc/groupnorm_silu_nhwc.cu",
         replaces="sd_video_gen_tpu/ops/groupnorm.py:35"),
 }
 
@@ -257,21 +279,38 @@ def check_attention(sig, dtype) -> dict:
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], scale=scale), 20)
     BH, T, d = shape
+    # least time: both products at the peak rate of the type (f32 runs
+    # outside the tensor cores), or q, k, v read and the output written once
+    flops_ms = 4 * BH * T * T * d / (BF16_FLOPS if dtype == torch.bfloat16
+                                     else F32_FLOPS) * 1e3
+    bytes_ms = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
     return dict(max_abs_err=err, ok=err <= ATTN_ATOL[dtype], ms=ms,
                 plain_ms=plain_ms,
                 route=route(dtype, d, (q.data_ptr(), k.data_ptr(),
                                        v.data_ptr())),
-                tflops=4 * BH * T * T * d / ms / 1e9, sdpa_ms=sdpa_ms)
+                tflops=4 * BH * T * T * d / ms / 1e9, library_ms=sdpa_ms,
+                bound_ms=max(flops_ms, bytes_ms),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes")
 
 
-def check_groupnorm(sig, dtype) -> dict:
-    shape, _, groups, eps, silu = sig
+def check_groupnorm(sig, dtype, body) -> dict:
+    """One GroupNorm signature on ``body``: ``"nhwc"`` makes the tensor
+    channels-last, ``"nchw"`` contiguous; ``route`` must agree."""
+    shape, _, groups, eps, silu, _ = sig
     g = torch.Generator(device="cuda").manual_seed(0)
     x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    if body == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    if gn.route(x) != body:
+        raise AssertionError(f"groupnorm route {gn.route(x)} for a {body} "
+                             f"tensor of shape {shape}")
     C = shape[1]
     w = (1 + 0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
     b = (0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
     out = groupnorm_silu(x, w, b, groups, eps, silu)
+    if out.stride() != x.stride():
+        raise AssertionError(f"groupnorm_silu changed the memory format: "
+                             f"{x.stride()} -> {out.stride()}")
     ref = groupnorm_silu_reference(x.float(), w.float(), b.float(), groups,
                                    eps, silu)
     diff = (out.float() - ref).abs()
@@ -282,54 +321,99 @@ def check_groupnorm(sig, dtype) -> dict:
     ms, plain_ms = timed(
         lambda: groupnorm_silu_reference(x, w, b, groups, eps, silu),
         lambda: groupnorm_silu(x, w, b, groups, eps, silu))
-    return dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms)
+    # For scale only: torch's own ops on the same tensor (same memory format).
+    library_ms = cuda_ms(lambda: F.silu(F.group_norm(x, groups, w, b, eps))
+                         if silu else F.group_norm(x, groups, w, b, eps), 10)
+    nbytes = 2 * x.numel() * x.element_size()    # one read, one write
+    mode = ""
+    if body == "nhwc":
+        plan = gn.nhwc_plan(shape[0], C, shape[2] * shape[3], groups, dtype)
+        mode = {"cluster": f"{plan['blocks']} clusters of {plan['cluster']}",
+                "streaming": f"streaming, {plan['blocks']} stat blocks a "
+                             f"unit"}[plan["mode"]]
+        mode += f", {plan['groups_per_unit']} groups per unit"
+    return dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, route=body,
+                mode=mode, library_ms=library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                gbps=nbytes / ms / 1e6)
+
+
+def wrapper_host_cost():
+    """Host time per ``groupnorm_silu`` call on a tiny tensor (the device
+    work is nothing): what each of the path's thousands of calls costs the
+    Python thread, per body."""
+    w = torch.ones(32, device="cuda", dtype=torch.bfloat16)
+    for body in ("nhwc", "nchw"):
+        x = torch.randn(1, 32, 8, 8, device="cuda", dtype=torch.bfloat16)
+        if body == "nhwc":
+            x = x.contiguous(memory_format=torch.channels_last)
+        for _ in range(200):
+            groupnorm_silu(x, w, w, 8, 1e-6, True)
+        torch.cuda.synchronize()
+        n, t0 = 3000, time.perf_counter()
+        for _ in range(n):
+            groupnorm_silu(x, w, w, 8, 1e-6, True)
+        host = (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        log(f"kernel: groupnorm_silu wrapper on (1, 32, 8, 8) bf16 {body}: "
+            f"{host * 1e6:.2f} us of host time per call, {1 / host:.0f} "
+            f"calls/s")
 
 
 def phase_kernel(sigs) -> dict:
     rows, failures = [], []
     for (name, sig), calls in sigs.items():
+        if name == "groupnorm_silu" and sig[5] != "nhwc":
+            raise AssertionError(f"the dry run handed GroupNorm a {sig[5]} "
+                                 f"tensor {sig[0]}: the models left "
+                                 f"channels-last")
+        # the path's own body first, then the NCHW body on the same shape
+        bodies = ("nhwc", "nchw") if name == "groupnorm_silu" else (None,)
         for dtype in (torch.bfloat16, torch.float32):
-            check = check_attention if name == "flash_attention" else \
-                check_groupnorm
-            row = dict(kernel=name, shape=list(sig[0]),
-                       args=[str(a) for a in sig[2:]],
-                       dtype=str(dtype).split(".")[-1], calls=calls,
-                       **check(sig, dtype))
-            rows.append(row)
-            extra = (f", route {row['route']}, {row['tflops']:.1f} TFLOP/s, "
-                     f"sdpa (yardstick, not a port) {row['sdpa_ms']:.4f} ms"
-                     if name == "flash_attention" else "")
-            log(f"kernel: {name} {tuple(sig[0])} {row['args']} "
-                f"{row['dtype']} x{calls}: err {row['max_abs_err']:.2e} "
-                f"{'ok' if row['ok'] else 'FAIL'}, {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms{extra}")
-            if not row["ok"]:
-                failures.append(row)
+            for body in bodies:
+                res = (check_attention(sig, dtype) if body is None else
+                       check_groupnorm(sig, dtype, body))
+                row = dict(kernel=name, shape=list(sig[0]),
+                           args=[str(a) for a in sig[2:5]],
+                           dtype=str(dtype).split(".")[-1], calls=calls,
+                           on_path=body != "nchw", **res)
+                rows.append(row)
+                extra = (f", {row['tflops']:.1f} TFLOP/s"
+                         if name == "flash_attention" else
+                         f" ({row['mode']}), {row['gbps']:.0f} GB/s"
+                         if row["mode"] else f", {row['gbps']:.0f} GB/s")
+                log(f"kernel: {name} {tuple(sig[0])} {row['args']} "
+                    f"{row['dtype']} x{calls}: err {row['max_abs_err']:.2e} "
+                    f"{'ok' if row['ok'] else 'FAIL'}, {row['ms']:.4f} ms, "
+                    f"plain {row['plain_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                    f"{row['bound_ms'] / row['ms']:.0%} of it reached), "
+                    f"library (yardstick, not a port) "
+                    f"{row['library_ms']:.4f} ms, route {row['route']}"
+                    f"{extra}")
+                if not row["ok"]:
+                    failures.append(row)
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
+    wrapper_host_cost()
     summary = {}
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         # times: the bf16 shape with the most kernel time in one batch of
-        # both paths; error: the worst over all rows
-        hot = max((r for r in mine if r["dtype"] == "bfloat16"),
-                  key=lambda r: r["calls"] * r["ms"])
-        summary[name] = dict(max_abs_err=max(r["max_abs_err"] for r in mine),
-                             ms=hot["ms"], plain_ms=hot["plain_ms"])
+        # both paths, on the path's body; error: the worst over all rows
+        hot = max((r for r in mine if r["dtype"] == "bfloat16"
+                   and r["on_path"]), key=lambda r: r["calls"] * r["ms"])
+        summary[name] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            **{k: hot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")})
+        total = sum(r["calls"] * r["ms"] for r in mine
+                    if r["dtype"] == "bfloat16" and r["on_path"])
         log(f"kernel: {name} summary times at {hot['shape']} {hot['args']} "
-            f"bf16 (most kernel time per batch), {len(mine)} rows")
-        if name == "groupnorm_silu":  # for scale only: torch's own ops
-            shape, groups, eps = hot["shape"], int(hot["args"][0]), \
-                float(hot["args"][1])
-            x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
-            w = torch.ones(shape[1], device="cuda", dtype=torch.bfloat16)
-            ms = cuda_ms(lambda: F.silu(F.group_norm(x, groups, w, w, eps)),
-                         20)
-            log(f"kernel: for scale, torch nn.GroupNorm + F.silu at "
-                f"{shape} bf16: {ms:.4f} ms")
-            del x
+            f"bf16 (most kernel time per batch), {len(mine)} rows; bf16 "
+            f"calls x ms over one batch of both paths: {total:.1f} ms")
     return summary
 
 
@@ -381,6 +465,7 @@ def phase_serve(models, path) -> dict:
 
     _kernels.LAUNCHES.clear()                     # main path starts here
     ROUTE_LAUNCHES.clear()
+    gn.ROUTE_LAUNCHES.clear()
     t_start = time.perf_counter()
     server = threading.Thread(target=run_server, daemon=True)
     server.start()
@@ -416,6 +501,7 @@ def phase_serve(models, path) -> dict:
         sock_dir.cleanup()
     launches = dict(_kernels.LAUNCHES)             # main path ends here
     bodies = dict(ROUTE_LAUNCHES)
+    gn_bodies = dict(gn.ROUTE_LAUNCHES)
     if errors:
         raise errors[0]
     if server.is_alive():
@@ -430,7 +516,11 @@ def phase_serve(models, path) -> dict:
                                  f"{is_pred}; expected {want_shape} uint8 "
                                  f"{want_flags}")
     expected = expected_launches(models, path)
-    log(f"{name}: launches {launches}; flash attention by body {bodies}")
+    log(f"{name}: launches {launches}; flash attention by body {bodies}; "
+        f"GroupNorm by body {gn_bodies}")
+    if gn_bodies.get("nhwc", 0) != launches.get("groupnorm_silu", 0):
+        raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
+                             f"{gn_bodies}")
     if bodies.get("wgmma", 0) != launches.get("flash_attention", 0):
         raise AssertionError(f"{name}: flash attention left the tensor-core "
                              f"body: {bodies}")
@@ -530,7 +620,164 @@ def phase_check(models):
                                  f"disagrees with the CPU")
 
 
+# Device-time buckets of the profile, by kernel name; the first match wins.
+PROFILE_BUCKETS = (
+    ("K1 flash attention", ("flash_fwd",)),
+    ("K2 GroupNorm+SiLU", ("gn_nhwc", "gn_partial", "gn_stats", "gn_apply")),
+    ("NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("convolutions", ("conv2d", "convolution", "cudnn", "xmma", "fprop",
+                      "implicit_gemm", "conv_")),
+    ("matrix products", ("gemm", "nvjet", "cublas", "gemv")),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("softmax", ("softmax",)),
+    ("copies / cat", ("copy", "catarray", "memcpy", "memset")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def phase_profile(models):
+    """One warm batch of each path (predict + the final decode, what
+    ``serve`` runs per batch) under torch.profiler, after two unprofiled
+    ones whose wall times give the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    for path in PATHS:
+        codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path)
+        frames = np.random.default_rng(2).integers(
+            0, 256, (path["batch_clips"], CONTEXT, FRAME, FRAME, 3),
+            dtype=np.uint8)
+
+        def batch():
+            with torch.inference_mode():
+                context, preds = predict(frames)
+                seq = torch.cat([context[:, :-1], preds], dim=1)
+                codec.decode_latents(seq.reshape(-1, seq.shape[-1]))
+            torch.cuda.synchronize()
+
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            batch()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            batch()
+        buckets, count, total = collections.Counter(), 0, 0.0
+        by_kernel = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if not us:
+                continue
+            key = e.key.lower()
+            name = next((b for b, words in PROFILE_BUCKETS
+                         if any(w in key for w in words)), "other")
+            buckets[name] += us / 1e3
+            by_kernel.append((us / 1e3, e.count, name, e.key))
+            total += us / 1e3
+            count += e.count
+        if not total:
+            raise AssertionError("profile: the trace shows no device time")
+        log(f"profile: {path['name']} B={path['batch_clips']}: unprofiled "
+            f"wall {walls[0]:.3f} s, {walls[1]:.3f} s; device time "
+            f"{total:.1f} ms in {count} kernels and copies; device idle "
+            f"{1 - total / 1e3 / min(walls):.0%} of the faster wall")
+        for name, ms in buckets.most_common():
+            log(f"profile:   {name}: {ms:.1f} ms ({ms / total:.1%})")
+        for ms, n, name, key in sorted(by_kernel, reverse=True)[:25]:
+            log(f"profile:     {ms:.1f} ms x{n} [{name}] {key[:110]}")
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``, from a CUDA graph of ``calls``
+    calls replayed ``replays`` times: no host time in it, which an eager
+    loop cannot give under ~0.03 ms a call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def phase_tune(sigs):
+    """The rule that picks the NHWC body's mode (``plan_for`` in
+    csrc/groupnorm_silu_nhwc.cu) against the alternatives, at every bf16
+    GroupNorm signature of the dry run: the body as planned, each mode
+    pinned, and the NCHW body on a contiguous copy, timed inside CUDA graphs
+    (the same tensor again and again, so one that fits the L2 cache is read
+    from there), then calls x ms over one batch of each path."""
+    dtype = torch.bfloat16
+    sums = collections.defaultdict(lambda: collections.Counter())
+    for (name, sig), calls in sigs.items():
+        if name != "groupnorm_silu":
+            continue
+        shape, _, groups, eps, silu, _ = sig
+        B, C, H, W = shape
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        w = (1 + 0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        b = (0.5 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        ref = groupnorm_silu_reference(x, w, b, groups, eps, silu)
+        rtol, atol = 2 ** -7, 1e-5      # two bf16 roundings, ref's and out's
+        ms = {}
+        for mode in (None, "cluster", "streaming"):
+            try:
+                gn.nhwc_plan(B, C, H * W, groups, dtype, mode=mode)
+            except ValueError:          # no cluster holds a unit
+                continue
+            run = lambda: gn._launch(x, w, b, groups, eps, silu, mode)
+            if not bool(((run().float() - ref.float()).abs()
+                         <= rtol * ref.float().abs() + atol).all()):
+                raise AssertionError(f"tune: mode {mode} disagrees with the "
+                                     f"plain version at {shape}")
+            ms[mode or "planned"] = graph_ms(run)
+        del ref
+        xc = x.contiguous()
+        ms["nchw"] = graph_ms(
+            lambda: groupnorm_silu(xc, w, b, groups, eps, silu))
+        del xc
+        ms["bound"] = (2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+                       * 1e3)
+        plan = gn.nhwc_plan(B, C, H * W, groups, dtype)
+        ms["best"] = min(v for k, v in ms.items() if k in ("cluster",
+                                                           "streaming"))
+        log(f"tune: {tuple(shape)} {groups} {eps} {silu} x{calls}: planned "
+            f"{ms['planned']:.4f} ms ({plan['mode']}, "
+            f"{plan['groups_per_unit']} groups per unit, cluster of "
+            f"{plan['cluster']}, tile {plan['tile_bytes']}), "
+            + ", ".join(f"{k} {ms[k]:.4f}" if k in ms else f"{k} does not fit"
+                        for k in ("cluster", "streaming", "nchw", "bound")))
+        path = "B=1" if B == 1 else "B=8"
+        for k, v in ms.items():
+            sums[path][k] += calls * v
+        sums[path]["cluster where it fits, else streaming"] += calls * ms.get(
+            "cluster", ms["streaming"])
+        torch.cuda.empty_cache()
+    for path, total in sums.items():
+        log(f"tune: {path} path, calls x ms over one batch: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in total.items()
+                        if k != "cluster"))
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tune", action="store_true",
+                        help="also time the GroupNorm NHWC body's modes at "
+                             "every path shape")
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile one warm batch of each path")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -541,12 +788,17 @@ def main() -> int:
     phase_device()
     phase_build()
     models = full_width_models()
-    summary = phase_kernel(path_signatures(models))
+    sigs = path_signatures(models)
+    summary = phase_kernel(sigs)
     launches = {k: 0 for k in KERNELS}
     for path in PATHS:
         for k, n in phase_serve(models, path).items():
             launches[k] = launches.get(k, 0) + n
     phase_check(models)
+    if args.profile:
+        phase_profile(models)
+    if args.tune:
+        phase_tune(sigs)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -30,7 +30,9 @@ from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
 
 
 def resize_nearest(frames_u8: torch.Tensor, size: int) -> torch.Tensor:
-    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8, half-pixel centres."""
+    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8, half-pixel centres.
+    The (N, 3, H, W) view of the frames is channels-last and stays so through
+    the resize, so neither permute copies."""
     x = frames_u8.permute(0, 3, 1, 2).float()
     x = F.interpolate(x, size=(size, size), mode="nearest-exact")
     return x.to(torch.uint8).permute(0, 2, 3, 1).contiguous()

@@ -4,8 +4,9 @@ Counterpart of ``sd_video_gen_tpu/diffusion/sd.py``: the empty-prompt
 embedding (``uncond_embeddings``), the guidance-0 noise prediction (one
 B-batch UNet call on the uncond half) and the partial denoise
 (``i2i_scan``, DDIM or DPM-Solver++(2M)) as a Python loop. Latents here are
-NCHW, the UNet's layout. Classifier-free guidance and LMS are not ported
-yet.
+(B, 4, h, w), the UNet's logical shape, in whatever strides they arrive
+(the UNet makes its input channels-last itself). Classifier-free guidance
+and LMS are not ported yet.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@
           -> round -> uint8 NHWC
   encode_batch: encode, then prepend the SOS token.
 
-Frames and latents keep the JAX package's layouts; the model runs NCHW.
+Frames and latents keep the JAX package's layouts. The model works on
+(B, C, H, W) in ``torch.channels_last`` memory, which is the frames' own NHWC:
+the permutes to and from frames are views, and only the latents' channel-major
+flatten copies (4 channels, small).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class VAECodec:
         """(B, T, H, W, 3) uint8 BGR -> (B, T, latent_dim) f32."""
         B, T, H, W, _ = frames.shape
         x = frames.to(self.device).float() / 255.0 * 2.0 - 1.0
-        x = x.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)
+        x = x.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)   # channels-last
         mean, _ = self.model.encode(x)
         z = mean.float() * SD_LATENT_SCALE          # (N, 4, h, w)
         return z.reshape(B, T, self.latent_dim)
@@ -47,7 +50,7 @@ class VAECodec:
         x = self.model.decode(z)
         x = torch.clamp(x.float() / 2.0 + 0.5, 0.0, 1.0)
         x = torch.round(x * 255.0).to(torch.uint8)
-        return x.permute(0, 2, 3, 1).contiguous()
+        return x.permute(0, 2, 3, 1).contiguous()   # no copy: x is NHWC
 
     def encode_batch(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) uint8 -> (B, T + 1, latent_dim): SOS, then frames."""

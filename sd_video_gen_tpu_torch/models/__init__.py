@@ -8,9 +8,25 @@ import torch
 def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0):
     """``module_cls(cfg)`` initialised from ``seed`` directly on ``device``
     (a full-width UNet is never materialised on the host first), cast to
-    ``dtype``, in eval mode with gradients off."""
-    device = torch.device(device or "cpu")
-    with torch.device(device):
+    ``dtype``, 4-D (convolution) weights in ``torch.channels_last``, in eval
+    mode with gradients off.
+
+    ``device`` defaults to the card and the call raises where there is none:
+    the CPU has to be asked for. The modules' own initialisers
+    (``reset_parameters``) draw from torch's global generators and take no
+    ``torch.Generator``, so the seed goes to those; they are forked around
+    the construction, which leaves the caller's random state as it was."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build: no CUDA device; pass device='cpu' to "
+                               "build the model on the host")
+        device = "cuda"
+    device = torch.device(device)
+    with torch.random.fork_rng(
+            devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
-        module = module_cls(cfg)
-    return module.to(device=device, dtype=dtype).eval().requires_grad_(False)
+        with torch.device(device):
+            module = module_cls(cfg)
+    module = module.to(device=device, dtype=dtype)
+    return module.to(memory_format=torch.channels_last).eval() \
+        .requires_grad_(False)

@@ -1,4 +1,4 @@
-"""SD v1 UNet2DCondition in PyTorch, NCHW.
+"""SD v1 UNet2DCondition in PyTorch, channels-last.
 
 Counterpart of ``sd_video_gen_tpu/models/unet.py``. Parameter names follow
 the diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks
@@ -10,6 +10,13 @@ time features. Spatial self-attention (``attn1``) goes through the flash
 kernel on a GPU; cross-attention over the text context stays plain. Every
 GroupNorm (+ SiLU) goes through the GroupNorm kernel on a GPU (the
 ``nn.GroupNorm`` modules only hold its parameters).
+
+Layout: logical shapes are (B, C, H, W); the memory format is
+``torch.channels_last`` from ``conv_in`` to the output, on the CPU as on the
+card (see ``models/vae.py``): the skip concatenation, the time-embedding
+add, nearest upsampling and the 1x1 projections keep it, and a
+``Transformer2D``'s token sequence (B, HW, C) is a view of it both ways.
+Nothing on that path may call ``.contiguous()`` without a memory format.
 """
 
 from __future__ import annotations
@@ -177,8 +184,9 @@ class Transformer2D(nn.Module):
     def forward(self, x, context):
         B, C, H, W = x.shape
         h = self.proj_in(group_norm(self.norm, x, silu=False))
-        h = h.flatten(2).transpose(1, 2)                         # (B, HW, C)
+        h = h.flatten(2).transpose(1, 2)       # (B, HW, C): a view of NHWC
         h = self.transformer_blocks[0](h, context)
+        # (B, HW, C) contiguous is (B, C, H, W) channels-last: a view back
         h = h.transpose(1, 2).reshape(B, C, H, W)
         return self.proj_out(h) + x
 
@@ -276,7 +284,8 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(t_feat.to(dt))
         context = context.to(dt)
 
-        x = self.conv_in(sample.to(dt))
+        x = self.conv_in(sample.to(dt).contiguous(
+            memory_format=torch.channels_last))
         skips = [x]
         for block in self.down_blocks:
             for j, res in enumerate(block.resnets):

@@ -1,4 +1,4 @@
-"""Stable Diffusion v1.4 VAE (AutoencoderKL) in PyTorch, NCHW.
+"""Stable Diffusion v1.4 VAE (AutoencoderKL) in PyTorch, channels-last.
 
 Counterpart of ``sd_video_gen_tpu/models/vae.py``. Parameter names follow the
 diffusers checkpoint keys (``encoder.down_blocks.0.resnets.0.norm1.weight``,
@@ -10,6 +10,13 @@ every GroupNorm (+ SiLU) goes through the GroupNorm kernel on a GPU (the
 stride-2 downsampling after a (0, 1, 0, 1) pad; nearest x2 upsampling.
 Defaults are SD-v1 AutoencoderKL: block_out_channels (128, 256, 512, 512),
 2 layers per block, 4 latent channels.
+
+Layout: logical shapes are (B, C, H, W) everywhere; the memory format is
+``torch.channels_last`` from the first convolution of ``encode`` / ``decode``
+to the output, on the CPU as on the card, so cuDNN's NHWC convolutions, the
+GroupNorm kernel's NHWC body and the attention block's token view all work on
+one layout with no copy between them. Nothing on that path may call
+``.contiguous()`` without a memory format.
 """
 
 from __future__ import annotations
@@ -71,9 +78,10 @@ class AttnBlock(nn.Module):
     def forward(self, x):
         B, C, H, W = x.shape
         h = group_norm(self.group_norm, x, silu=False)
-        h = h.flatten(2).transpose(1, 2)                        # (B, HW, C)
+        h = h.flatten(2).transpose(1, 2)       # (B, HW, C): a view of NHWC
         q, k, v = self.query(h), self.key(h), self.value(h)
         h = attention(q, k, v, scale=C ** -0.5)
+        # (B, HW, C) contiguous is (B, C, H, W) channels-last: a view back
         h = self.proj_attn(h).transpose(1, 2).reshape(B, C, H, W)
         return x + h
 
@@ -182,7 +190,8 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """encode -> (mean, logvar); decode(latents) -> pixels in [-1, 1]. NCHW."""
+    """encode -> (mean, logvar); decode(latents) -> pixels in [-1, 1].
+    (B, C, H, W) in and out; inputs of any strides, outputs channels-last."""
 
     def __init__(self, cfg: VAEConfig = VAEConfig()):
         super().__init__()
@@ -199,9 +208,11 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x):
         """(B, 3, H, W) pixels in [-1, 1] -> (mean, logvar), (B, 4, H/8, W/8)."""
-        moments = self.quant_conv(self.encoder(x.to(self.dtype)))
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        moments = self.quant_conv(self.encoder(x))
         mean, logvar = moments.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z):
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        z = z.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        return self.decoder(self.post_quant_conv(z))

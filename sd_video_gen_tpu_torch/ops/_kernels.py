@@ -172,6 +172,12 @@ def library() -> ctypes.CDLL:
             lib.sdvg_groupnorm_silu.argtypes = [p, p, p, p, p, i, i, ll, i,
                                                 ctypes.c_float, i, i, p]
             lib.sdvg_groupnorm_silu.restype = i
+            lib.sdvg_groupnorm_silu_nhwc_plan.argtypes = [
+                i, i, ll, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+            lib.sdvg_groupnorm_silu_nhwc_plan.restype = ll
+            lib.sdvg_groupnorm_silu_nhwc.argtypes = [
+                p, p, p, p, p, ll, i, i, ll, i, ctypes.c_float, i, i, i, p]
+            lib.sdvg_groupnorm_silu_nhwc.restype = i
             lib.sdvg_error_string.argtypes = [i]
             lib.sdvg_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -201,7 +201,8 @@ def test_bridge_assigns_every_param_and_uses_every_leaf(kind, pair):
 def test_bridge_refuses_missing_extra_and_misshaped():
     _, params, _ = unet_pair(seed=10)
     tree = np_tree(params)["params"]
-    fresh = lambda: build(UNet2DCondition, UNetConfig(**TINY_UNET))
+    fresh = lambda: build(UNet2DCondition, UNetConfig(**TINY_UNET),
+                          "cpu")
     dropped = {k: v for k, v in tree.items() if k != "conv_out"}
     with pytest.raises(ValueError, match="unassigned.*conv_out"):
         W.load_jax_params(fresh(), "unet", dropped)

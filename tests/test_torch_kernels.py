@@ -14,7 +14,9 @@ bf16, as in the TPU kernel. Every flash case checks which body
 (``attention.route``) it took. GroupNorm+SiLU, |out - ref| <= rtol |ref| +
 atol: f32 (1e-5, 1e-5), the same two-pass statistics summed in another
 order; bf16 (2^-8, 1e-5), the one final rounding (half an ulp) plus that f32
-noise.
+noise. Both GroupNorm bodies are held to it: a contiguous tensor takes the
+NCHW body, a channels-last one the NHWC body (``groupnorm.route``), in its
+cluster mode (one read, one launch) or its streaming mode (two of each).
 """
 
 import pytest
@@ -147,6 +149,171 @@ def test_groupnorm_silu_matches_plain(cuda, shape, groups, silu, eps, dtype):
     with _kernels.force_reference():
         pgn.group_norm(norm, x, silu)
     assert _kernels.LAUNCHES["groupnorm_silu"] == before + 1
+
+
+def _gn_inputs(shape, dtype, device):
+    """x (contiguous), weight, bias from a seed: a mean away from zero."""
+    g = torch.Generator(device=device).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    C = shape[1]
+    w = (1 + 0.5 * torch.randn(C, generator=g, device=device)).to(dtype)
+    b = (0.5 * torch.randn(C, generator=g, device=device)).to(dtype)
+    return x, w, b
+
+
+def _check_nhwc(x, w, b, groups, eps, silu, mode=None):
+    """The NHWC body on channels-last ``x`` against the plain version in f32;
+    one count per call, on the ``nhwc`` body; the memory format is kept."""
+    assert pgn.route(x) == "nhwc"
+    before = _kernels.LAUNCHES["groupnorm_silu"]
+    nhwc_before = pgn.ROUTE_LAUNCHES["nhwc"]
+    out = (pgn.groupnorm_silu(x, w, b, groups, eps, silu) if mode is None
+           else pgn._launch(x, w, b, groups, eps, silu, mode))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["groupnorm_silu"] == before + 1
+    assert pgn.ROUTE_LAUNCHES["nhwc"] == nhwc_before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert out.stride() == x.stride()
+    ref = pgn.groupnorm_silu_reference(x.float(), w.float(), b.float(),
+                                       groups, eps, silu)
+    rtol, atol = GN_TOL[x.dtype]
+    assert ((out.float() - ref).abs() <= rtol * ref.abs() + atol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
+@pytest.mark.parametrize("shape,groups,mode", [
+    # the path's hot shapes; 32 groups of 4, 8, 16, 10, 20, 30, 40, 60, 80
+    ((1, 128, 512, 512), 32, "streaming"),     # cpg 4, too large to hold
+    ((2, 256, 256, 256), 32, None),            # cpg 8
+    ((8, 512, 128, 128), 32, "streaming"),     # cpg 16; fits a cluster of 8
+    ((8, 512, 64, 64), 32, "cluster"),          # two waves of clusters of 2
+    ((8, 1280, 32, 32), 32, "cluster"),        # tiles of 160 KB
+    ((8, 320, 64, 64), 32, "cluster"),         # cpg 10: vectors cross groups
+    ((1, 320, 64, 64), 32, "cluster"),         # B = 1: clusters grown
+    ((8, 640, 32, 32), 32, "cluster"),         # cpg 20
+    ((8, 960, 64, 64), 32, "streaming"),       # cpg 30; fits a cluster of 8
+    ((8, 1280, 16, 16), 32, "cluster"),        # cpg 40
+    ((8, 1920, 32, 32), 32, "cluster"),        # cpg 60
+    ((8, 2560, 8, 8), 32, "cluster"),          # cpg 80
+    ((40, 512, 8, 8), 32, "cluster"),
+    # ragged H * W, rows that are no whole number of 16-byte vectors (the
+    # one-element variant), one pixel, one long row, a single group
+    ((2, 64, 3, 5), 32, None), ((2, 64, 65, 33), 32, "cluster"),
+    ((1, 12, 5, 7), 3, None), ((2, 6, 3, 3), 2, None),
+    ((3, 64, 1, 1), 32, None), ((1, 8, 1, 4099), 1, None),
+    ((2, 36, 9, 7), 6, None)])
+def test_groupnorm_silu_nhwc_matches_plain(cuda, shape, groups, mode, silu,
+                                           eps, dtype):
+    x, w, b = _gn_inputs(shape, dtype, cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    plan = pgn.nhwc_plan(shape[0], shape[1], shape[2] * shape[3], groups,
+                         dtype)
+    if mode is not None and dtype == torch.bfloat16:
+        assert plan["mode"] == mode
+    assert (plan["workspace"] == 0) == (plan["mode"] == "cluster")
+    _check_nhwc(x, w, b, groups, eps, silu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["cluster", "streaming"])
+@pytest.mark.parametrize("shape,groups", [
+    ((8, 320, 64, 64), 32), ((2, 512, 32, 32), 32), ((2, 64, 65, 33), 32),
+    ((1, 12, 5, 7), 3), ((3, 64, 1, 1), 32), ((2, 1280, 8, 8), 32),
+    ((8, 960, 64, 64), 32), ((3, 256, 128, 128), 32)])
+def test_groupnorm_silu_nhwc_every_mode_gives_the_same_answer(cuda, shape,
+                                                               groups, mode,
+                                                               dtype):
+    """Each mode pinned at shapes where the plan might take another: the
+    cluster mode (one launch, partials through distributed shared memory)
+    and the streaming mode (two launches, partials through a workspace)."""
+    x, w, b = _gn_inputs(shape, dtype, cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    plan = pgn.nhwc_plan(shape[0], shape[1], shape[2] * shape[3], groups,
+                         dtype, mode=mode)
+    assert plan["mode"] == mode
+    assert (plan["workspace"] == 0) == (mode == "cluster")
+    _check_nhwc(x, w, b, groups, 1e-6, True, mode=mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_nhwc_cluster_mode_takes_several_waves(cuda, dtype):
+    """More clusters than the card holds at once, each of several blocks
+    whose pixel ranges do not divide H * W evenly: a unit that the plan
+    would stream, held in clusters when asked to."""
+    shape = (5, 256, 250, 130)
+    x, w, b = _gn_inputs(shape, dtype, cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    assert pgn.nhwc_plan(5, 256, 250 * 130, 32, dtype)["mode"] == "streaming"
+    plan = pgn.nhwc_plan(5, 256, 250 * 130, 32, dtype, mode="cluster")
+    assert plan["mode"] == "cluster" and plan["cluster"] > 1
+    assert plan["blocks"] * plan["cluster"] > 132
+    _check_nhwc(x, w, b, 32, 1e-5, True, mode="cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc-cluster", "nhwc-streaming", "nchw"])
+def test_groupnorm_silu_f32_holds_at_large_activations(cuda, layout):
+    """SiLU far from zero in f32 (normalised values scaled by ~20 and shifted
+    by up to +-30, so |y| reaches ~100): exp and the division are exact
+    enough for the f32 tolerance on every body."""
+    shape, dtype = (2, 64, 24, 24), torch.float32
+    x, w, b = _gn_inputs(shape, dtype, cuda)
+    w, b = w * 20.0, b * 60.0
+    if layout == "nchw":
+        out = pgn.groupnorm_silu(x, w, b, 32, 1e-5, True)
+    else:
+        x = x.contiguous(memory_format=torch.channels_last)
+        out = pgn._launch(x, w, b, 32, 1e-5, True, layout.split("-")[1])
+    ref = pgn.groupnorm_silu_reference(x, w, b, 32, 1e-5, True)
+    assert ref.abs().max() > 50
+    rtol, atol = GN_TOL[dtype]
+    assert ((out - ref).abs() <= rtol * ref.abs() + atol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_nhwc_unaligned_pointer_takes_scalar_loads(cuda,
+                                                                  dtype):
+    """A channels-last view that starts one element into its storage is not
+    16-byte aligned: the plan drops to one element per load."""
+    flat = torch.randn(2 * 64 * 9 * 9 + 1, device=cuda).to(dtype)
+    x = flat[1:].view(2, 9, 9, 64).permute(0, 3, 1, 2)
+    assert x.data_ptr() % 16 != 0
+    _, w, b = _gn_inputs((2, 64, 9, 9), dtype, cuda)
+    assert pgn.nhwc_plan(2, 64, 81, 32, dtype, aligned=False)["vector"] == 1
+    assert pgn.nhwc_plan(2, 64, 81, 32, dtype)["vector"] > 1
+    _check_nhwc(x, w, b, 32, 1e-5, True)
+
+
+@pytest.mark.cuda
+def test_group_norm_dispatch_follows_the_memory_format(cuda):
+    """The dispatcher launches the body ``route`` names, keeps the format,
+    makes no copy of a tensor neither body takes (it raises), and both
+    bodies agree to the bf16 rounding on the same values."""
+    x, w, b = _gn_inputs((2, 64, 16, 16), torch.bfloat16, cuda)
+    norm = nn.GroupNorm(32, 64, eps=1e-6).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    counts = dict(pgn.ROUTE_LAUNCHES)
+    a = pgn.group_norm(norm, x, True)
+    c = pgn.group_norm(norm, xcl, True)
+    torch.cuda.synchronize()
+    assert pgn.ROUTE_LAUNCHES["nchw"] == counts.get("nchw", 0) + 1
+    assert pgn.ROUTE_LAUNCHES["nhwc"] == counts.get("nhwc", 0) + 1
+    assert a.is_contiguous() and c.stride() == xcl.stride()
+    assert ((a.float() - c.float()).abs()
+            <= 2 ** -7 * a.float().abs() + 1e-5).all()
+    with pytest.raises(ValueError, match="contiguous"):
+        pgn.group_norm(norm, xcl[:, :, :, :8], True)
+    with _kernels.force_reference():
+        r = pgn.group_norm(norm, xcl, True)
+    assert r.stride() == xcl.stride()
 
 
 @pytest.mark.cuda

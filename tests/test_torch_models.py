@@ -103,6 +103,67 @@ def test_unet_matches_jax():
                                np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("part", ["vae_encode", "vae_decode", "unet"])
+def test_models_take_any_input_strides_and_run_channels_last(part, vae):
+    """A contiguous input and its channels-last copy give bit-identical
+    outputs (the models make their input channels-last themselves), channels
+    stay the fastest axis of the output, and the logical shape is (B, C, H,
+    W) as before."""
+    rng = np.random.default_rng(5)
+    if part == "unet":
+        _, _, pm = unet_pair(seed=1)
+        ts = t(np.array([981, 1], np.float32))
+        ctx = t(rng.standard_normal((2, 8, 16)).astype(np.float32))
+        run = lambda x: (pm(x, ts, ctx),)
+        x, want = t(rng.standard_normal((2, 4, 8, 8)).astype(np.float32)), 4
+    elif part == "vae_encode":
+        run = vae[2].encode
+        x, want = t(rng.uniform(-1, 1, (2, 3, 16, 16)).astype(np.float32)), 4
+    else:
+        run = lambda x: (vae[2].decode(x),)
+        x, want = t(rng.standard_normal((2, 4, 8, 8)).astype(np.float32)), 3
+    assert x.is_contiguous()
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        a, b = run(x), run(xcl)
+    for u, v in zip(a, b):
+        assert u.shape[:2] == (2, want) and u.stride() == v.stride()
+        assert u.stride(1) == 1                     # channels-last memory
+        assert u.numpy().tobytes() == v.numpy().tobytes()
+
+
+@pytest.mark.parametrize("name", ["vae", "unet"])
+def test_bridged_weights_load_into_channels_last_parameters(name):
+    """The layout is a memory format only: the bridge's state_dict loads as
+    before, every 4-D weight stays channels-last afterwards with the bridged
+    values, and a state_dict round trip into a freshly built model gives the
+    same output bit for bit."""
+    from sd_video_gen_tpu_torch.diffusion.weights import load_jax_params
+    from sd_video_gen_tpu_torch.models import build
+    from torch_port_common import np_tree
+    _, params, pm = vae_pair(seed=3) if name == "vae" else unet_pair(seed=3)
+    convs = [p for p in pm.parameters() if p.dim() == 4]
+    assert convs and all(
+        p.is_contiguous(memory_format=torch.channels_last) for p in convs)
+    fresh = build(type(pm), pm.cfg, "cpu", seed=99)
+    fresh.load_state_dict(pm.state_dict())
+    again = load_jax_params(build(type(pm), pm.cfg, "cpu", seed=98), name,
+                            np_tree(params))
+    rng = np.random.default_rng(6)
+    z = t(rng.standard_normal((1, 4, 8, 8)).astype(np.float32))
+    if name == "vae":
+        run = lambda m: m.decode(z)
+    else:
+        ctx = t(rng.standard_normal((1, 8, 16)).astype(np.float32))
+        run = lambda m: m(z, torch.tensor([500.0]), ctx)
+    with torch.no_grad():
+        want = run(pm)
+        for m in (fresh, again):
+            assert all(p.is_contiguous(memory_format=torch.channels_last)
+                       for p in m.parameters() if p.dim() == 4)
+            assert torch.equal(run(m), want)
+
+
 def test_clip_text_matches_jax():
     jm, params, pm = clip_pair(seed=2)
     ids = np.random.default_rng(3).integers(0, 49408, (2, 8))
@@ -150,7 +211,7 @@ def test_vae_golden_forward_via_bridge():
                     latent_channels=int(fx["meta/latent"]))
     params = jax.tree.map(np.asarray, convert_vae(
         sd, block_out=blocks, layers_per_block=layers))
-    vae = load_jax_params(build(AutoencoderKL, cfg), "vae", params)
+    vae = load_jax_params(build(AutoencoderKL, cfg, "cpu"), "vae", params)
     # the port's names are the checkpoint's: the bridged weights are its own
     for k, v in vae.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k].reshape(v.shape))
@@ -177,7 +238,7 @@ def test_unet_golden_forward_via_bridge():
                      norm_num_groups=int(fx["meta/groups"]))
     params = jax.tree.map(np.asarray, convert_unet(
         sd, block_out=blocks, layers_per_block=layers))
-    unet = load_jax_params(build(UNet2DCondition, cfg), "unet", params)
+    unet = load_jax_params(build(UNet2DCondition, cfg, "cpu"), "unet", params)
     for k, v in unet.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k].reshape(v.shape))
     with torch.no_grad():

@@ -85,6 +85,46 @@ def test_resize_nearest_matches_jax_half_pixel_centres():
                                       np.asarray(want))
 
 
+def test_resize_nearest_keeps_the_frames_memory_and_copies_nothing_back():
+    """The (N, 3, H, W) view of NHWC frames is channels-last and stays so
+    through the resize, so the permute back is already contiguous."""
+    import torch.nn.functional as F
+    x = t(np.random.default_rng(0).integers(0, 256, (2, 8, 8, 3))
+          .astype(np.uint8))
+    view = x.permute(0, 3, 1, 2)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    up = F.interpolate(view.float(), size=(16, 16), mode="nearest-exact")
+    assert up.is_contiguous(memory_format=torch.channels_last)
+    assert up.permute(0, 2, 3, 1).is_contiguous()
+    out = resize_nearest(x, 16)
+    assert out.is_contiguous() and out.shape == (2, 16, 16, 3)
+
+
+def test_latents_flatten_channel_major_byte_for_byte():
+    """The model runs channels-last, the latents keep the JAX package's
+    channel-major flatten: ``encode_frames`` returns exactly the bytes of the
+    contiguous (N, 4, h, w) latents, ``decode_latents`` reads them back in
+    that order and returns contiguous NHWC uint8 frames."""
+    from sd_video_gen_tpu_torch.diffusion.vae_codec import SD_LATENT_SCALE
+    _, _, pvae = vae_pair(seed=20)
+    codec = VAECodec(LO, pvae)
+    frames = t(np.random.default_rng(3).integers(
+        0, 256, (2, 3, LO, LO, 3)).astype(np.uint8))
+    with torch.no_grad():
+        lat = codec.encode_frames(frames)
+        x = (frames.float() / 255.0 * 2.0 - 1.0).reshape(6, LO, LO, 3)
+        mean, _ = pvae.encode(x.permute(0, 3, 1, 2).contiguous())
+        want = (mean.float() * SD_LATENT_SCALE).contiguous()   # NCHW bytes
+        assert want.is_contiguous() and want.shape == (6, 4, LO // 2, LO // 2)
+        assert lat.is_contiguous() and lat.shape == (2, 3, codec.latent_dim)
+        assert lat.numpy().tobytes() == want.numpy().tobytes()
+        img = codec.decode_latents(lat.reshape(6, -1))
+        direct = pvae.decode(want / SD_LATENT_SCALE)
+    assert img.is_contiguous() and img.shape == (6, LO, LO, 3)
+    direct = torch.round(torch.clamp(direct / 2 + 0.5, 0, 1) * 255)
+    assert torch.equal(img, direct.to(torch.uint8).permute(0, 2, 3, 1))
+
+
 def test_default_noise_is_fresh_per_step_and_reproducible():
     draw = default_noise(40, torch.device("cpu"))
     a, b = draw(1, (2, 8, 8, 4)), draw(2, (2, 8, 8, 4))

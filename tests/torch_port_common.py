@@ -67,7 +67,7 @@ def random_params(module, seed: int, *init_args, **init_kw):
 def vae_pair(seed: int = 0):
     jm = JVAE(JVAEConfig(**TINY_VAE))
     params = random_params(jm, seed, jnp.zeros((1, 8, 8, 3)))
-    pm = load_jax_params(build(AutoencoderKL, VAEConfig(**TINY_VAE)), "vae",
+    pm = load_jax_params(build(AutoencoderKL, VAEConfig(**TINY_VAE), 'cpu'), "vae",
                          np_tree(params))
     return jm, params, pm
 
@@ -76,7 +76,7 @@ def unet_pair(seed: int = 0):
     jm = JUNet(JUNetConfig(**TINY_UNET))
     params = random_params(jm, seed, jnp.zeros((1, 8, 8, 4)),
                            jnp.zeros((1,), jnp.int32), jnp.zeros((1, 3, 16)))
-    pm = load_jax_params(build(UNet2DCondition, UNetConfig(**TINY_UNET)),
+    pm = load_jax_params(build(UNet2DCondition, UNetConfig(**TINY_UNET), "cpu"),
                          "unet", np_tree(params))
     return jm, params, pm
 
@@ -85,7 +85,8 @@ def clip_pair(seed: int = 0):
     from sd_video_gen_tpu.models.clip_text import empty_prompt_ids
     jm = JCLIP(JCLIPConfig(**TINY_CLIP))
     params = random_params(jm, seed, empty_prompt_ids(1, 8))
-    pm = load_jax_params(build(CLIPTextEncoder, CLIPTextConfig(**TINY_CLIP)),
+    pm = load_jax_params(build(CLIPTextEncoder, CLIPTextConfig(**TINY_CLIP),
+                               "cpu"),
                          "clip", np_tree(params))
     return jm, params, pm
 
@@ -98,7 +99,7 @@ def transformer_pair(latent_dim: int, seed: int = 0,
     params = random_params(jm, seed, x, x, tgt_mask=jcausal_mask(3))
     pm = load_jax_params(
         build(FrameTransformer, FrameTransformerConfig(
-            latent_dim=latent_dim, pe_mode=pe_mode, **TINY_FT)),
+            latent_dim=latent_dim, pe_mode=pe_mode, **TINY_FT), "cpu"),
         "transformer", np_tree(params))
     return jm, params, pm
 
