@@ -8,10 +8,12 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
   2. build    the CUDA kernels from csrc/ with nvcc, timed
   3. kernel   the full-width models (flagship FrameTransformer + SD-v1.4
               VAE/UNet/CLIP-text, bf16, seeded random weights) are built on
-              the card; a dry run of both serving paths with the plain
-              versions records every shape each kernel is handed there; flash
-              attention and GroupNorm+SiLU are held against their plain
-              PyTorch versions at each of those shapes, bf16 and f32, timed
+              the card; a dry run of every path that reaches a kernel, with
+              the plain versions, records every shape each kernel is handed
+              there (the SD samplers with 2 steps: every step has the same
+              shapes); flash attention and GroupNorm+SiLU are held against
+              their plain PyTorch versions at each of those shapes, bf16 and
+              f32, timed
               with CUDA events (plain, kernel, kernel, plain); each flash
               row also names the kernel's body (``attention.route``: wgmma
               or fma), its TFLOP/s (4 BH T^2 d / time), its bound and, for
@@ -23,28 +25,48 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               with its bound
               (one read and one write at the memory rate), GB/s and
               torch's ``F.silu(F.group_norm(...))`` time in the same memory
-              format (a yardstick); the GroupNorm wrapper's host cost per
-              call is timed on a tiny shape
-  4. serve    ``vae_denoise_ar4``: the port's ``serve`` loop at
-              batch_clips=1 with the 10-step DDIM tail answers predict
-              requests over a Unix socket; reply shapes, finite latents and
-              the exact launch count of each kernel are checked, warm
-              predicted frames/s printed; every flash launch of the path
-              must have taken the tensor-core (wgmma) body and every
-              GroupNorm launch the NHWC body
-  5. serve8   ``vae_denoise_ar4_8streams_dpmpp5``: the same at batch_clips=8
-              with the 5-eval DPM-Solver++(2M) tail; three 8-clip requests
-              and one ragged 3-clip request
+              format (a yardstick); each wrapper's host cost per call is
+              timed on a tiny shape
+  4. serve    every predict path through the port's ``serve`` loop over a
+              Unix socket (one warm-up batch, then the path's requests):
+              reply shapes, ``is_pred`` flags, finite latents and the exact
+              launch count of each kernel are checked, warm predicted
+              frames/s printed; every flash launch must have taken the
+              tensor-core (wgmma) body and every GroupNorm launch the NHWC
+              body. The paths (names and sizes are the JAX bench's):
+              ``vae_denoise_ar4`` (B=1, 10-step DDIM tail at 512px),
+              ``vae_denoise_ar4_8streams_dpmpp5`` (batch_clips=8, 5-eval
+              DPM-Solver++(2M) tail, one ragged 3-clip request),
+              ``pixel_ar16`` (PixelCodec, 256 clips, 16 frames, full
+              rollout) and its ``_int8``, ``_kvcache`` and ``_kvcache_int8``
+              variants, ``vae_ar16`` (VAE codec, 32 clips, 16 frames, no
+              refiner), ``vae_denoise_native_ar4`` (8 clips, cached rollout,
+              the native-resolution refiner from DDIM step 48), and one
+              8-clip request each of the modes ``diff``, ``future``,
+              ``learned_tgt``, ``text`` (labels in the request) and the
+              ``IdentityModel`` baseline
+  5. sd       the full SD pipeline at 512px, B=1, guidance 7.5, the cond
+              embedding from seeded token ids: ``sd_txt2img_lms50``
+              (``denoise_img_latents``, 50 LMS steps, then the decode),
+              ``sd_txt2img_dpmpp20`` (20 DPM-Solver++ evaluations) and
+              ``sd_img2img_ddim`` (``img_to_img`` from DDIM step 10): the
+              UNet calls are counted (each of batch 2), launches exact,
+              images/s and UNet calls/s printed
   6. check    a full-width 512px UNet forward and VAE decode with the
               kernels against the same with the plain versions (relative
-              L2), and the whole slice at small widths in f32 on the card
-              (kernels) against the CPU (plain) with each sampler
-  7. profile  only with ``--profile``: one warm batch of each path (predict
-              + final decode, after two unprofiled ones) under
-              torch.profiler, device time bucketed by kernel name
+              L2); guidance 0 as a Python number (one B-batch call) against
+              the uncond half of the pair; frame 1 of the cached rollout
+              against frame 1 of the full rollout, and the int8 rollouts
+              against the bf16 ones, at full width; the slices at small
+              widths in f32 on the card (kernels) against the CPU (plain)
+  7. profile  only with ``--profile``: one warm batch of four paths under
+              torch.profiler, device time bucketed by kernel name; the two
+              unprofiled batches of every path, whose walls give the idle
+              share, all run before the first trace
   8. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
-              dry run, the NHWC body as planned, with each of its modes
-              pinned, and the NCHW body, device time inside CUDA graphs
+              two 512px refiner paths, the NHWC body as planned, with each
+              of its modes pinned, and the NCHW body, device time inside
+              CUDA graphs
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and matmul
@@ -69,13 +91,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sd_video_gen_tpu_torch.codecs import PixelCodec
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
 from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
 from sd_video_gen_tpu_torch.models import build
 from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextConfig,
-                                                     CLIPTextEncoder)
+                                                     CLIPTextEncoder,
+                                                     empty_prompt_ids)
+from sd_video_gen_tpu_torch.models.identity import IdentityModel
+from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
 from sd_video_gen_tpu_torch.models.unet import (Transformer2D,
@@ -92,13 +118,57 @@ from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
 
-FRAME, CONTEXT, PRED, HI_RES, START_STEP, DDIM_STEPS = 64, 5, 4, 512, 40, 50
-# The two serving paths: the JAX bench's vae_denoise_ar4 and
-# vae_denoise_ar4_8streams_dpmpp5 (bench.py); requests are clips per request.
-PATHS = [dict(name="vae_denoise_ar4", batch_clips=1, sampler="ddim",
-              solver_steps=None, requests=[1, 1, 1]),
-         dict(name="vae_denoise_ar4_8streams_dpmpp5", batch_clips=8,
-              sampler="dpmpp", solver_steps=5, requests=[8, 8, 8, 3])]
+FRAME, CONTEXT, HI_RES, DDIM_STEPS = 64, 5, 512, 50
+FLAGSHIP = dict(dim_model=2048, num_heads=8, num_encoder_layers=4,
+                num_decoder_layers=8)
+# The predict paths, served in this order; names and sizes are the JAX
+# bench's (bench.py). ``requests`` are clips per request after the warm-up
+# batch; ``refine`` is the per-frame partial denoise (``hi_res=None``: on the
+# native latent grid); ``model`` names the transformer (``full_width_models``,
+# ``mode_models``). Keys left out take ``PATH_DEFAULTS``.
+PATH_DEFAULTS = dict(codec="pixel", pred=4, refine=None, mode="ar",
+                     model="ar", rollout="full", int8=False,
+                     future_horizon=None, labels=False)
+PATHS = [dict(PATH_DEFAULTS, **p) for p in (
+    dict(name="vae_denoise_ar4", codec="vae", batch_clips=1, requests=[1, 1],
+         refine=dict(hi_res=HI_RES, start_step=40, sampler="ddim",
+                     solver_steps=None)),
+    dict(name="vae_denoise_ar4_8streams_dpmpp5", codec="vae", batch_clips=8,
+         requests=[8, 8, 3],
+         refine=dict(hi_res=HI_RES, start_step=40, sampler="dpmpp",
+                     solver_steps=5)),
+    dict(name="pixel_ar16", batch_clips=256, pred=16, requests=[256, 256]),
+    dict(name="pixel_ar16_int8", batch_clips=256, pred=16, int8=True,
+         requests=[256, 256]),
+    dict(name="pixel_ar16_kvcache", batch_clips=256, pred=16,
+         rollout="cached", requests=[256, 256]),
+    dict(name="pixel_ar16_kvcache_int8", batch_clips=256, pred=16,
+         rollout="cached", int8=True, requests=[256, 256]),
+    dict(name="vae_ar16", codec="vae", batch_clips=32, pred=16,
+         requests=[32, 32]),
+    dict(name="vae_denoise_native_ar4", codec="vae", batch_clips=8,
+         rollout="cached", requests=[8, 8],
+         refine=dict(hi_res=None, start_step=48, sampler="ddim",
+                     solver_steps=None)),
+    dict(name="mode_diff", mode="diff", batch_clips=8, requests=[8]),
+    dict(name="mode_future", mode="future", model="future", batch_clips=8,
+         future_horizon=5, requests=[8]),
+    dict(name="mode_learned_tgt", mode="learned_tgt", model="learned_tgt",
+         batch_clips=8, future_horizon=5, requests=[8]),
+    dict(name="mode_text", mode="text", model="text", batch_clips=8,
+         labels=True, requests=[8]),
+    dict(name="identity_baseline", model="identity", batch_clips=8,
+         requests=[8]))]
+# The two 512px refiner paths: what --tune times.
+REFINER_PATHS = ("vae_denoise_ar4", "vae_denoise_ar4_8streams_dpmpp5")
+# The SD pipeline at 512px, B=1, guidance 7.5: ``unet_calls`` of batch 2 each.
+SD_GUIDANCE, SD_RUNS = 7.5, 3                 # one warm-up run + two timed
+SD_PATHS = [
+    dict(name="sd_txt2img_lms50", sampler="lms", steps=50, unet_calls=50),
+    dict(name="sd_txt2img_dpmpp20", sampler="dpmpp", steps=20, unet_calls=20),
+    dict(name="sd_img2img_ddim", sampler="ddim", steps=DDIM_STEPS,
+         start_step=10, unet_calls=40)]
+TEXT_CLASSES, TEXT_DIM = 101, 384
 # Kernel vs its plain version computed in f32 from the same inputs.
 # flash attention, max abs: f32 FMA order over up to 4096 keys; bf16: p is
 # rounded to bf16 before p.v and the output to bf16, as in the TPU kernel.
@@ -121,7 +191,28 @@ VAE_REL_L2 = 4e-2
 # but frames pass through uint8 twice per refine, so a value on a rounding
 # boundary may flip a level and move the re-encoded latent.
 SMALL_LATENT_ATOL = 1e-3
+# int8 at small widths, card vs CPU: a value on a rounding boundary may take
+# another int8 step on the other device, worth 1/127 of its token's largest
+# value in one product.
+SMALL_INT8_ATOL = 5e-2
+# Frame 1 of the cached rollout against the full rollout's in f32: summation
+# order only.
+SMALL_CACHED_FRAME1_REL_L2 = 1e-4
 SMALL_PIXEL_FLIP_SHARE = 0.01
+# Guidance 0 as one B-batch UNet call against the uncond half of the 2B-batch
+# pair, bf16 at 512px: the same arithmetic at another batch size, so cuDNN
+# and cuBLAS may pick other algorithms and sum in other orders: the bf16
+# rounding floor of the UNet again (UNET_REL_L2).
+# Frame 1 of the cached rollout against frame 1 of the full rollout, bf16 at
+# full width: the same mathematics, but the cached path keeps the JAX
+# package's f32 layer norms and residual adds where the module rounds each
+# to bf16, through 4 + 8 layers: relative L2.
+CACHED_FRAME1_REL_L2 = 5e-2
+# The int8 rollouts against the bf16 ones, first predicted frame, relative
+# L2: per-token int8 activations and per-channel int8 weights (1/127 steps)
+# through 12 layers; the JAX package's own tests hold int8 to "a few
+# percent" of the float forward at small widths.
+INT8_REL_L2 = 0.15
 # The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -197,35 +288,60 @@ def checked_refine(refine):
 
 def checked_predict(predict):
     """The predict entry point, failing on non-finite latents."""
-    def run(frames):
-        context, preds = predict(frames)
+    def run(frames, text_embeds=None):
+        context, preds = predict(frames, text_embeds)
         return _assert_finite("context", context), _assert_finite("preds",
                                                                   preds)
     return run
 
 
 def _models(device, dtype, vae_cfg, unet_cfg, clip_cfg, ft_dims, frame):
-    """VAE, UNet, CLIP-text and FrameTransformer, seeded, built on device."""
+    """VAE, UNet, CLIP-text and the mode-'ar' FrameTransformer, seeded, built
+    on device."""
     vae = build(AutoencoderKL, vae_cfg, device, dtype, seed=0)
     latent_dim = VAECodec(frame, vae).latent_dim
-    return (vae, build(UNet2DCondition, unet_cfg, device, dtype, seed=1),
-            build(CLIPTextEncoder, clip_cfg, device, dtype, seed=2),
-            build(FrameTransformer, FrameTransformerConfig(
-                latent_dim=latent_dim, **ft_dims), device, dtype, seed=3))
+    return dict(
+        device=torch.device(device), dtype=dtype, vae=vae,
+        unet=build(UNet2DCondition, unet_cfg, device, dtype, seed=1),
+        clip=build(CLIPTextEncoder, clip_cfg, device, dtype, seed=2),
+        ar=build(FrameTransformer, FrameTransformerConfig(
+            latent_dim=latent_dim, **ft_dims), device, dtype, seed=3))
 
 
-def _predict_fn(models, frame, hi_res, pred, path, noise_fn=None,
-                checked=False):
-    """The port's predict entry point over ``models`` (refine at hi_res with
-    the path's sampler)."""
-    vae, unet, clip, ft = models
-    codec = VAECodec(frame, vae)
-    refine = make_denoise_refiner(
-        SDPipeline(vae, unet, clip), frame, START_STEP, DDIM_STEPS, hi_res,
-        noise_fn, sampler=path["sampler"], solver_steps=path["solver_steps"])
-    if checked:
-        refine = checked_refine(refine)
-    predict = make_predict_fn(ft, codec, pred, window=CONTEXT, refiner=refine)
+def mode_models(models, ft_dims, text_dim=TEXT_DIM):
+    """``models`` plus the transformers of the other modes (same widths; the
+    text model is ``dim_model + text_dim`` wide) and the identity baseline."""
+    L = models["ar"].cfg.latent_dim
+    out = dict(models, identity=IdentityModel())
+    for seed, mode in enumerate(("future", "learned_tgt", "text"), start=4):
+        out[mode] = build(FrameTransformer, FrameTransformerConfig(
+            latent_dim=L, mode=mode, frames_to_predict=5,
+            text_embed_dim=text_dim, **ft_dims),
+            models["device"], models["dtype"], seed=seed)
+    return out
+
+
+def _predict_fn(models, path, frame=FRAME, hi_res=None, pred=None,
+                noise_fn=None, checked=False):
+    """The port's predict entry point for ``path`` over ``models``; ``hi_res``
+    and ``pred`` replace the path's (the small-width checks)."""
+    dev = models["device"]
+    codec = (VAECodec(frame, models["vae"]) if path["codec"] == "vae"
+             else PixelCodec(frame, dev))
+    refine = None
+    if path["refine"] is not None:
+        r = path["refine"]
+        refine = make_denoise_refiner(
+            SDPipeline(models["vae"], models["unet"], models["clip"]), frame,
+            r["start_step"], DDIM_STEPS,
+            r["hi_res"] and (hi_res or r["hi_res"]), noise_fn,
+            sampler=r["sampler"], solver_steps=r["solver_steps"])
+        if checked:
+            refine = checked_refine(refine)
+    predict = make_predict_fn(
+        models[path["model"]], codec, pred or path["pred"], window=CONTEXT,
+        mode=path["mode"], refiner=refine, rollout=path["rollout"],
+        int8=path["int8"], future_horizon=path["future_horizon"])
     return codec, checked_predict(predict) if checked else predict
 
 
@@ -233,34 +349,80 @@ def full_width_models():
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     t0 = time.perf_counter()
     models = _models(dev, bf16, VAEConfig(), UNetConfig(), CLIPTextConfig(),
-                     dict(dim_model=2048, num_heads=8, num_encoder_layers=4,
-                          num_decoder_layers=8), FRAME)
-    n_params = sum(p.numel() for m in models for p in m.parameters())
+                     FLAGSHIP, FRAME)
+    n_params = sum(p.numel() for m in models.values()
+                   if isinstance(m, nn.Module) for p in m.parameters())
     torch.cuda.synchronize()
     log(f"models: built {n_params / 1e6:.1f}M params bf16 on {dev} in "
         f"{time.perf_counter() - t0:.1f} s")
     return models
 
 
+def sd_inputs(models):
+    """The SD paths' pipeline, [uncond; cond] embeddings (the cond half from
+    seeded token ids between BOS and EOS: the tokenizer's files are not in
+    the repository) and a seeded 512px uint8 image."""
+    pipe = SDPipeline(models["vae"], models["unet"], models["clip"])
+    rng = np.random.default_rng(7)
+    ids = empty_prompt_ids(1, pipe.clip.cfg.max_length, pipe.device)
+    ids[0, 1:9] = torch.from_numpy(rng.integers(0, 49406, 8)).to(ids)
+    with torch.inference_mode():
+        emb = torch.cat([pipe.uncond_embeddings(1)[:1], pipe.clip(ids)])
+    img = rng.integers(0, 256, (1, HI_RES, HI_RES, 3), dtype=np.uint8)
+    return pipe, emb, img
+
+
+def run_sd(pipe, path, emb, img, steps=None, seed=0):
+    """One image through an SD path -> (1, 512, 512, 3) uint8. ``steps``
+    cuts the sampler short (the dry run): that many UNet calls."""
+    g = torch.Generator(device=pipe.device).manual_seed(seed)
+    if path["sampler"] == "ddim":
+        start = path["start_step"] if steps is None else path["steps"] - steps
+        return pipe.img_to_img([""], img, HI_RES, HI_RES, path["steps"],
+                               SD_GUIDANCE, start_step=start, generator=g)
+    lat = pipe.denoise_img_latents(emb, HI_RES, HI_RES, steps or path["steps"],
+                                   SD_GUIDANCE, generator=g,
+                                   sampler=path["sampler"])
+    return pipe._decode_pixels(_assert_finite("denoised latents", lat))
+
+
 def path_signatures(models):
-    """Every (kernel, signature) the serving paths hand the dispatchers, with
-    its number of calls in one batch of each path: a dry run of predict +
-    the final decode (what ``serve`` runs per batch) with the plain
-    versions."""
+    """Every (kernel, signature) each path that reaches a kernel hands the
+    dispatchers, with its number of calls in one batch (predict + the final
+    decode, what ``serve`` runs) or one image: a dry run with the plain
+    versions; the SD samplers with 2 steps. By path name."""
     t0 = time.perf_counter()
-    with _kernels.force_reference(), _kernels.record_calls() as rec, \
-            torch.inference_mode():
+    pipe, emb, img = sd_inputs(models)
+    by_path = {}
+    with _kernels.force_reference(), torch.inference_mode():
         for path in PATHS:
-            codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path)
-            context, preds = predict(np.zeros(
-                (path["batch_clips"], CONTEXT, FRAME, FRAME, 3), np.uint8))
-            seq = torch.cat([context[:, :-1], preds], dim=1)
-            codec.decode_latents(seq.reshape(-1, seq.shape[-1]))
+            if path["codec"] != "vae" and path["refine"] is None:
+                continue
+            with _kernels.record_calls() as rec:
+                codec, predict = _predict_fn(models, path)
+                context, preds = predict(np.zeros(
+                    (path["batch_clips"], CONTEXT, FRAME, FRAME, 3),
+                    np.uint8))
+                seq = torch.cat([context[:, :-1], preds], dim=1)
+                codec.decode_latents(seq.reshape(-1, seq.shape[-1]))
+            by_path[path["name"]] = rec.calls
+        for path in SD_PATHS:
+            with _kernels.record_calls() as rec:
+                run_sd(pipe, path, emb, img, steps=2)
+            by_path[path["name"]] = rec.calls
     torch.cuda.synchronize()
-    n = {k: sum(1 for name, _ in rec.calls if name == k) for k in KERNELS}
-    log(f"kernel: dry run of both paths (plain versions) in "
+    merged = merge_signatures(by_path.values())
+    n = {k: sum(1 for name, _ in merged if name == k) for k in KERNELS}
+    log(f"kernel: dry run of {len(by_path)} paths (plain versions) in "
         f"{time.perf_counter() - t0:.1f} s: {n} distinct signatures")
-    return rec.calls
+    return by_path
+
+
+def merge_signatures(counters) -> collections.Counter:
+    merged = collections.Counter()
+    for calls in counters:
+        merged.update(calls)
+    return merged
 
 
 def check_attention(sig, dtype) -> dict:
@@ -339,25 +501,36 @@ def check_groupnorm(sig, dtype, body) -> dict:
 
 
 def wrapper_host_cost():
-    """Host time per ``groupnorm_silu`` call on a tiny tensor (the device
-    work is nothing): what each of the path's thousands of calls costs the
-    Python thread, per body."""
+    """Host time per wrapper call on a tiny tensor (the device work is
+    nothing): what each of a path's thousands of calls costs the Python
+    thread, per kernel and body."""
+    def per_call(fn) -> float:
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        n, t0 = 3000, time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return host
+
     w = torch.ones(32, device="cuda", dtype=torch.bfloat16)
     for body in ("nhwc", "nchw"):
         x = torch.randn(1, 32, 8, 8, device="cuda", dtype=torch.bfloat16)
         if body == "nhwc":
             x = x.contiguous(memory_format=torch.channels_last)
-        for _ in range(200):
-            groupnorm_silu(x, w, w, 8, 1e-6, True)
-        torch.cuda.synchronize()
-        n, t0 = 3000, time.perf_counter()
-        for _ in range(n):
-            groupnorm_silu(x, w, w, 8, 1e-6, True)
-        host = (time.perf_counter() - t0) / n
-        torch.cuda.synchronize()
+        host = per_call(lambda: groupnorm_silu(x, w, w, 8, 1e-6, True))
         log(f"kernel: groupnorm_silu wrapper on (1, 32, 8, 8) bf16 {body}: "
             f"{host * 1e6:.2f} us of host time per call, {1 / host:.0f} "
             f"calls/s")
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 64, 40, device="cuda").to(dtype)
+        body = route(dtype, 40, (q.data_ptr(),) * 3)
+        host = per_call(lambda: flash_attention(q, q, q))
+        log(f"kernel: flash_attention wrapper on (1, 64, 40) "
+            f"{str(dtype).split('.')[-1]} {body}: {host * 1e6:.2f} us of "
+            f"host time per call, {1 / host:.0f} calls/s")
 
 
 def phase_kernel(sigs) -> dict:
@@ -368,7 +541,12 @@ def phase_kernel(sigs) -> dict:
                                  f"tensor {sig[0]}: the models left "
                                  f"channels-last")
         # the path's own body first, then the NCHW body on the same shape
-        bodies = ("nhwc", "nchw") if name == "groupnorm_silu" else (None,)
+        # (not at C = 1 or H = W = 1: both layouts are the same memory there
+        # and ``route`` gives it to the NHWC body)
+        bodies = (None,)
+        if name == "groupnorm_silu":
+            one_layout = sig[0][1] == 1 or sig[0][2] * sig[0][3] == 1
+            bodies = ("nhwc",) if one_layout else ("nhwc", "nchw")
         for dtype in (torch.bfloat16, torch.float32):
             for body in bodies:
                 res = (check_attention(sig, dtype) if body is None else
@@ -402,7 +580,7 @@ def phase_kernel(sigs) -> dict:
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         # times: the bf16 shape with the most kernel time in one batch of
-        # both paths, on the path's body; error: the worst over all rows
+        # every path, on the path's body; error: the worst over all rows
         hot = max((r for r in mine if r["dtype"] == "bfloat16"
                    and r["on_path"]), key=lambda r: r["calls"] * r["ms"])
         summary[name] = dict(
@@ -413,42 +591,84 @@ def phase_kernel(sigs) -> dict:
                     if r["dtype"] == "bfloat16" and r["on_path"])
         log(f"kernel: {name} summary times at {hot['shape']} {hot['args']} "
             f"bf16 (most kernel time per batch), {len(mine)} rows; bf16 "
-            f"calls x ms over one batch of both paths: {total:.1f} ms")
+            f"calls x ms over one batch of every path: {total:.1f} ms")
     return summary
 
 
-def expected_launches(models, path) -> dict:
-    """Launches of each kernel in the path's serve run, from the models'
-    structure: every GroupNorm module runs once per pass, flash attention
-    once per VAE attention block and per UNet Transformer2D (attn1)."""
-    vae, unet = models[0], models[1]
-    count = lambda m, cls: sum(isinstance(x, cls) for x in m.modules())
-    per_pass = {  # (VAE encode, VAE decode, UNet forward)
-        "flash_attention": (count(vae.encoder, AttnBlock),
-                            count(vae.decoder, AttnBlock),
-                            count(unet, Transformer2D)),
-        "groupnorm_silu": (count(vae.encoder, nn.GroupNorm),
-                           count(vae.decoder, nn.GroupNorm),
-                           count(unet, nn.GroupNorm))}
-    n_unet = (DDIMSchedule(DDIM_STEPS).n_steps - START_STEP
-              if path["sampler"] == "ddim" else path["solver_steps"])
-    batches = 1 + len(path["requests"])         # warm-up + requests
+def expected_launches(models, path, batches: int) -> dict:
+    """Launches of each kernel in ``batches`` batches of a predict path, from
+    the models' structure: every GroupNorm module runs once per pass, flash
+    attention once per VAE attention block and per UNet Transformer2D
+    (attn1)."""
     out = {}
-    for name, (enc, dec, un) in per_pass.items():
-        # context encode; per frame 2 VAE dec + 2 VAE enc + the UNet calls;
-        # the final decode
-        out[name] = batches * (enc + PRED * (2 * dec + 2 * enc + n_unet * un)
-                               + dec)
-        log(f"{path['name']}: {name} expected {out[name]} = {batches} batches "
-            f"x ({enc} + {PRED} x (2 x {dec} + 2 x {enc} + {n_unet} x {un}) "
-            f"+ {dec})")
+    for name, (enc, dec, un) in passes_per_model(models).items():
+        codec = path["codec"] == "vae"
+        per_frame, r = 0, path["refine"]
+        if r is not None:
+            n_unet = (DDIMSchedule(DDIM_STEPS).n_steps - r["start_step"]
+                      if r["sampler"] == "ddim" else r["solver_steps"])
+            # at hi_res: 2 VAE dec + 2 VAE enc around the UNet calls
+            per_frame = n_unet * un + (2 * (dec + enc) if r["hi_res"] else 0)
+        # context encode; the refiner per frame; the final decode
+        out[name] = batches * (codec * enc + path["pred"] * per_frame
+                               + codec * dec)
+        log(f"{path['name']}: {name} expected {out[name]} = {batches} "
+            f"batches x ({codec * enc} + {path['pred']} x {per_frame} + "
+            f"{codec * dec})")
     return out
 
 
+def passes_per_model(models) -> dict:
+    """Kernel launches per (VAE encode, VAE decode, UNet forward)."""
+    vae, unet = models["vae"], models["unet"]
+    count = lambda m, cls: sum(isinstance(x, cls) for x in m.modules())
+    return {"flash_attention": (count(vae.encoder, AttnBlock),
+                                count(vae.decoder, AttnBlock),
+                                count(unet, Transformer2D)),
+            "groupnorm_silu": (count(vae.encoder, nn.GroupNorm),
+                               count(vae.decoder, nn.GroupNorm),
+                               count(unet, nn.GroupNorm))}
+
+
+class launch_window:
+    """Counts of the main path: every count set to 0 on entry, read on exit
+    (``launches``, and launches by body of each kernel)."""
+
+    def __enter__(self):
+        _kernels.LAUNCHES.clear()
+        ROUTE_LAUNCHES.clear()
+        gn.ROUTE_LAUNCHES.clear()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.launches = {k: _kernels.LAUNCHES.get(k, 0) for k in KERNELS}
+        self.bodies = dict(ROUTE_LAUNCHES)
+        self.gn_bodies = dict(gn.ROUTE_LAUNCHES)
+        return False
+
+    def check(self, name: str, expected: dict):
+        log(f"{name}: launches {self.launches}; flash attention by body "
+            f"{self.bodies}; GroupNorm by body {self.gn_bodies}")
+        if self.gn_bodies.get("nhwc", 0) != self.launches["groupnorm_silu"]:
+            raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
+                                 f"{self.gn_bodies}")
+        if self.bodies.get("wgmma", 0) != self.launches["flash_attention"]:
+            raise AssertionError(f"{name}: flash attention left the "
+                                 f"tensor-core body: {self.bodies}")
+        for kernel, want in expected.items():
+            if self.launches[kernel] != want:
+                raise AssertionError(
+                    f"{name}: {kernel} launched {self.launches[kernel]} "
+                    f"times, the path implies {want}")
+
+
 def phase_serve(models, path) -> dict:
-    name, batch_clips = path["name"], path["batch_clips"]
-    codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path,
-                                 checked=True)
+    name, batch_clips, pred = path["name"], path["batch_clips"], path["pred"]
+    codec, predict = _predict_fn(models, path, checked=True)
+    embedder = (ClassNameEmbedder(TEXT_CLASSES, TEXT_DIM,
+                                  device=models["device"])
+                if path["labels"] else None)
     sock_dir = tempfile.TemporaryDirectory(prefix="sdvg")
     sock = os.path.join(sock_dir.name, "serve.sock")
     if len(sock) > 100:
@@ -459,81 +679,114 @@ def phase_serve(models, path) -> dict:
         try:
             S.serve(sock, predict, codec.decode_latents,
                     batch_clips=batch_clips, frames_per_clip=CONTEXT,
-                    frame_size=FRAME)
+                    frame_size=FRAME, embedder=embedder)
         except Exception as e:  # re-raised by the main thread below
             errors.append(e)
 
-    _kernels.LAUNCHES.clear()                     # main path starts here
-    ROUTE_LAUNCHES.clear()
-    gn.ROUTE_LAUNCHES.clear()
-    t_start = time.perf_counter()
-    server = threading.Thread(target=run_server, daemon=True)
-    server.start()
     replies = []
-    try:
-        while True:  # the warm-up batch runs before the socket exists
-            if errors or not server.is_alive():
-                raise RuntimeError(f"serve loop stopped before it was "
-                                   f"ready: {errors}")
-            try:
-                S.ping(sock)
-                break
-            except OSError:
-                time.sleep(0.5)
-        log(f"{name}: server ready after {time.perf_counter() - t_start:.1f}"
-            f" s (warm-up batch included)")
-        rng = np.random.default_rng(0)
-        for i, clips in enumerate(path["requests"]):
-            frames = rng.integers(0, 256, (clips, CONTEXT, FRAME, FRAME, 3),
-                                  dtype=np.uint8)
-            t1 = time.perf_counter()
-            imgs, is_pred, _ = S.request(sock, frames, timeout_s=600)
-            wall = time.perf_counter() - t1
-            replies.append((clips, imgs, is_pred, wall))
-            log(f"{name}: request {i} ({clips} clips at batch_clips="
-                f"{batch_clips}): {list(imgs.shape)} {imgs.dtype}, "
-                f"{wall:.3f} s, {clips * PRED / wall:.3f} predicted frames/s")
-    finally:
-        if server.is_alive():
-            S.shutdown(sock)
-        server.join(timeout=120)
-        torch.cuda.synchronize()
-        sock_dir.cleanup()
-    launches = dict(_kernels.LAUNCHES)             # main path ends here
-    bodies = dict(ROUTE_LAUNCHES)
-    gn_bodies = dict(gn.ROUTE_LAUNCHES)
+    with launch_window() as window:               # the main path
+        t_start = time.perf_counter()
+        server = threading.Thread(target=run_server, daemon=True)
+        server.start()
+        try:
+            while True:  # the warm-up batch runs before the socket exists
+                if errors or not server.is_alive():
+                    raise RuntimeError(f"serve loop stopped before it was "
+                                       f"ready: {errors}")
+                try:
+                    S.ping(sock)
+                    break
+                except OSError:
+                    time.sleep(0.2)
+            log(f"{name}: server ready after "
+                f"{time.perf_counter() - t_start:.1f} s (warm-up batch "
+                f"included)")
+            rng = np.random.default_rng(0)
+            for i, clips in enumerate(path["requests"]):
+                frames = rng.integers(
+                    0, 256, (clips, CONTEXT, FRAME, FRAME, 3), dtype=np.uint8)
+                labels = (rng.integers(0, TEXT_CLASSES, clips).tolist()
+                          if path["labels"] else None)
+                t1 = time.perf_counter()
+                imgs, is_pred, _ = S.request(sock, frames, labels,
+                                             timeout_s=600)
+                wall = time.perf_counter() - t1
+                replies.append((clips, imgs, is_pred, wall))
+                log(f"{name}: request {i} ({clips} clips at batch_clips="
+                    f"{batch_clips}): {list(imgs.shape)} {imgs.dtype}, "
+                    f"{wall:.3f} s, {clips * pred / wall:.3f} predicted "
+                    f"frames/s")
+        finally:
+            if server.is_alive():
+                S.shutdown(sock)
+            server.join(timeout=120)
+            sock_dir.cleanup()
     if errors:
         raise errors[0]
     if server.is_alive():
         raise RuntimeError("serve loop did not stop")
 
-    want_flags = [False] * (CONTEXT - 1) + [True] * PRED
+    want_flags = [False] * (CONTEXT - 1) + [True] * pred
     for clips, imgs, is_pred, _ in replies:
-        want_shape = (clips, CONTEXT - 1 + PRED, FRAME, FRAME, 3)
+        want_shape = (clips, CONTEXT - 1 + pred, FRAME, FRAME, 3)
         if (imgs.shape != want_shape or imgs.dtype != np.uint8
                 or is_pred != want_flags):
             raise AssertionError(f"reply {imgs.shape} {imgs.dtype} "
                                  f"{is_pred}; expected {want_shape} uint8 "
                                  f"{want_flags}")
-    expected = expected_launches(models, path)
-    log(f"{name}: launches {launches}; flash attention by body {bodies}; "
-        f"GroupNorm by body {gn_bodies}")
-    if gn_bodies.get("nhwc", 0) != launches.get("groupnorm_silu", 0):
-        raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
-                             f"{gn_bodies}")
-    if bodies.get("wgmma", 0) != launches.get("flash_attention", 0):
-        raise AssertionError(f"{name}: flash attention left the tensor-core "
-                             f"body: {bodies}")
-    for kernel, want in expected.items():
-        if launches.get(kernel, 0) != want:
-            raise AssertionError(f"{name}: {kernel} launched "
-                                 f"{launches.get(kernel, 0)} times, the path "
-                                 f"implies {want}")
-    full = [c * PRED / w for c, _, _, w in replies if c == batch_clips]
+    window.check(name, expected_launches(models, path,
+                                         1 + len(path["requests"])))
+    full = [c * pred / w for c, _, _, w in replies if c == batch_clips]
     log(f"{name}: warm predicted frames/s at B={batch_clips}: {full} (mean "
         f"{float(np.mean(full)):.4f}); total "
         f"{time.perf_counter() - t_start:.1f} s")
-    return launches
+    return window.launches
+
+
+def phase_sd(models) -> dict:
+    """The three SD paths, each ``SD_RUNS`` images (the first a warm-up) with
+    its UNet calls counted by a hook."""
+    pipe, emb, img = sd_inputs(models)
+    total = {k: 0 for k in KERNELS}
+    for path in SD_PATHS:
+        name, batches, walls = path["name"], [], []
+        hook = pipe.unet.register_forward_pre_hook(
+            lambda m, args: batches.append(args[0].shape[0]))
+        try:
+            with launch_window() as window:       # the main path
+                for run in range(SD_RUNS):
+                    t0 = time.perf_counter()
+                    out = run_sd(pipe, path, emb, img, seed=run)
+                    pixels = out.cpu().numpy()
+                    walls.append(time.perf_counter() - t0)
+                    if (pixels.shape != (1, HI_RES, HI_RES, 3)
+                            or pixels.dtype != np.uint8
+                            or pixels.min() == pixels.max()):
+                        raise AssertionError(
+                            f"{name}: image {pixels.shape} {pixels.dtype}, "
+                            f"levels {pixels.min()}..{pixels.max()}")
+        finally:
+            hook.remove()
+        calls = path["unet_calls"]
+        if batches != [2] * (SD_RUNS * calls):
+            raise AssertionError(
+                f"{name}: {len(batches)} UNet calls of batches "
+                f"{sorted(set(batches))}; expected {SD_RUNS} x {calls} of "
+                f"batch 2")
+        # an image: the UNet calls and the decode; img2img encodes first
+        window.check(name, {
+            k: SD_RUNS * (calls * un + dec
+                          + (enc if path["sampler"] == "ddim" else 0))
+            for k, (enc, dec, un) in passes_per_model(models).items()})
+        warm = walls[1:]
+        log(f"{name}: {calls} UNet calls of batch 2 an image; walls "
+            f"{[round(w, 3) for w in walls]} s (the first a warm-up); warm "
+            f"images/s {[round(1 / w, 4) for w in warm]} (mean "
+            f"{float(np.mean([1 / w for w in warm])):.4f}), UNet calls/s "
+            f"{float(np.mean([calls / w for w in warm])):.2f}")
+        for k, n in window.launches.items():
+            total[k] += n
+    return total
 
 
 def _rel_l2(fn) -> tuple[float, float, float]:
@@ -551,14 +804,45 @@ def _rel_l2(fn) -> tuple[float, float, float]:
     return rel, ms, ms_ref
 
 
+def _first_frames(models, names, frames) -> dict:
+    """Predicted frame 1 of each named path on the same frames."""
+    by_name = {p["name"]: p for p in PATHS}
+    out = {}
+    for name in names:
+        _, predict = _predict_fn(models, by_name[name], frame=frames.shape[2],
+                                 pred=2)
+        out[name] = _assert_finite(name, predict(frames)[1][:, 0]).float()
+    return out
+
+
+def _check_rollout_variants(models, frames, what, cached_bound, int8_bound):
+    """Frame 1 of the cached rollout against the full rollout's, and the int8
+    rollouts against the float ones, relative L2."""
+    first = _first_frames(models, ("pixel_ar16", "pixel_ar16_kvcache",
+                                   "pixel_ar16_int8",
+                                   "pixel_ar16_kvcache_int8"), frames)
+    rel = lambda a, b: ((first[a] - first[b]).norm()
+                        / first[b].norm()).item()
+    cached = rel("pixel_ar16_kvcache", "pixel_ar16")
+    int8 = {n: rel(n, "pixel_ar16") for n in ("pixel_ar16_int8",
+                                               "pixel_ar16_kvcache_int8")}
+    log(f"check: {what}: frame 1 of the cached rollout vs the full rollout, "
+        f"rel L2 {cached:.3e} (bound {cached_bound}); int8 vs float "
+        + ", ".join(f"{n} {v:.3e}" for n, v in int8.items())
+        + f" (bound {int8_bound})")
+    if not (cached <= cached_bound and max(int8.values()) <= int8_bound):
+        raise AssertionError(f"{what}: rollout variants disagree")
+
+
 def phase_check(models):
     dev = torch.device("cuda")
-    vae, unet, clip, _ = models
+    vae, unet = models["vae"], models["unet"]
+    pipe, emb, _ = sd_inputs(models)
     g = torch.Generator(device=dev).manual_seed(5)
     sample = torch.randn(1, 4, HI_RES // 8, HI_RES // 8, generator=g,
                          device=dev)
     t = torch.tensor([981.0], device=dev)
-    ctx = SDPipeline(vae, unet, clip).uncond_embeddings(1)[:1]
+    ctx = pipe.uncond_embeddings(1)[:1]
     with torch.inference_mode():
         for what, fn, bound in (
                 ("UNet forward", lambda: unet(sample, t, ctx), UNET_REL_L2),
@@ -570,13 +854,42 @@ def phase_check(models):
             if not rel <= bound:
                 raise AssertionError(f"{what} with the kernels: rel L2 {rel} "
                                      f"> {bound}")
+        # guidance 0 as a Python number: one B-batch call, the uncond half
+        batches = []
+        hook = unet.register_forward_pre_hook(
+            lambda m, args: batches.append(args[0].shape[0]))
+        try:
+            zero = pipe._unet_eps(sample, 981.0, emb, 0.0)
+            pair = unet(torch.cat([sample, sample]), t.expand(2), emb)
+            guided = pipe._unet_eps(sample, 981.0, emb, SD_GUIDANCE)
+        finally:
+            hook.remove()
+        rel = ((zero - pair[:1]).norm() / pair[:1].norm()).item()
+        cfg = pair[:1] + SD_GUIDANCE * (pair[1:] - pair[:1])
+        rel_cfg = ((guided - cfg).norm() / cfg.norm()).item()
+        log(f"check: guidance 0 (a Python number) ran UNet batches "
+            f"{batches[:1]}, guidance {SD_GUIDANCE} {batches[2:]}; B-batch "
+            f"call vs the uncond half of the pair: rel L2 {rel:.3e} (bound "
+            f"{UNET_REL_L2}); guided eps vs the pair combined by hand: "
+            f"{rel_cfg:.3e}")
+        if batches != [1, 2, 2] or not rel <= UNET_REL_L2 or rel_cfg > 1e-6:
+            raise AssertionError("guidance: wrong UNet batches or the "
+                                 "B-batch call left the pair's uncond half")
 
-    # The whole slice at small widths in f32, with each sampler: on the card
-    # with the kernels, against the same weights and noise on the CPU with
-    # the plain versions (what the CPU tests hold against the JAX package).
+    frames = np.random.default_rng(1).integers(
+        0, 256, (8, CONTEXT, FRAME, FRAME, 3), dtype=np.uint8)
+    _check_rollout_variants(models, frames, "bf16 at full width",
+                            CACHED_FRAME1_REL_L2, INT8_REL_L2)
+
+    # The slices at small widths in f32: on the card with the kernels,
+    # against the same weights and noise on the CPU with the plain versions
+    # (what the CPU tests hold against the JAX package). 16px frames: a VAE
+    # latent of 8 x 8 x 4 = 256, a pixel latent of 16.
     noise = lambda step, shape: torch.randn(
         shape, generator=torch.Generator().manual_seed(step))
-    cpu_models = _models(
+    small_ft = dict(dim_model=64, num_heads=4, num_encoder_layers=1,
+                    num_decoder_layers=2, dim_feedforward=64)
+    base = _models(
         "cpu", torch.float32,
         VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
                   norm_num_groups=8),
@@ -584,40 +897,55 @@ def phase_check(models):
                    attention_heads=2, cross_attention_dim=32,
                    norm_num_groups=8),
         CLIPTextConfig(hidden_size=32, num_layers=1, num_heads=2,
-                       intermediate_size=64),
-        dict(dim_model=64, num_heads=4, num_encoder_layers=1,
-             num_decoder_layers=2, dim_feedforward=64), 16)
-    gpu_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
+                       intermediate_size=64), small_ft, 16)
+    pixel = mode_models(dict(base, ar=build(
+        FrameTransformer, FrameTransformerConfig(latent_dim=16, **small_ft),
+        "cpu", seed=3)), small_ft, text_dim=8)
+    on_cpu = {"vae": base, "pixel": pixel}
+    on_card = {codec: dict({k: copy.deepcopy(m).to(dev)
+                            for k, m in ms.items()
+                            if isinstance(m, nn.Module)},
+                           device=dev, dtype=torch.float32)
+               for codec, ms in on_cpu.items()}
     frames = np.random.default_rng(1).integers(
         0, 256, (2, CONTEXT, 16, 16, 3), dtype=np.uint8)
+    labels = [3, 77]
     for path in PATHS:
         out = {}
-        for where, ms_ in (("cpu", cpu_models), ("gpu", gpu_models)):
-            codec, predict = _predict_fn(ms_, 16, 64, 3, path, noise_fn=noise)
+        for where, sets in (("cpu", on_cpu), ("gpu", on_card)):
+            ms = sets[path["codec"]]
+            codec, predict = _predict_fn(ms, path, 16, 64, 3, noise_fn=noise)
             before = dict(_kernels.LAUNCHES)
-            ctx, preds = predict(frames)
+            extra = ((ClassNameEmbedder(TEXT_CLASSES, 8, device=ms["device"])(
+                labels),) if path["labels"] else ())
+            ctx, preds = predict(frames, *extra)
             img = codec.decode_latents(preds.reshape(-1, codec.latent_dim))
             launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
                         for k in KERNELS}
             out[where] = (ctx.cpu(), preds.cpu(), img.cpu(), launched)
-        if not (min(out["gpu"][3].values()) > 0
-                and max(out["cpu"][3].values()) == 0):
+        on_kernels = path["codec"] == "vae"
+        if (max(out["cpu"][3].values()) != 0
+                or (min(out["gpu"][3].values()) > 0) != on_kernels):
             raise AssertionError(f"small slice launches: {out['gpu'][3]} on "
                                  f"the card, {out['cpu'][3]} on the CPU")
         ctx_err = (out["gpu"][0] - out["cpu"][0]).abs().max().item()
         lat_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
         flips = (out["gpu"][2].int() - out["cpu"][2].int()).abs()
         flip_share = flips.float().mean().item()
-        log(f"check: small f32 slice ({path['sampler']}), card (kernels "
+        atol = SMALL_INT8_ATOL if path["int8"] else SMALL_LATENT_ATOL
+        log(f"check: small f32 slice {path['name']}, card (kernels "
             f"{out['gpu'][3]}) vs CPU (plain): context max abs {ctx_err:.3e}, "
-            f"preds max abs {lat_err:.3e} (bound {SMALL_LATENT_ATOL}), pixels "
+            f"preds max abs {lat_err:.3e} (bound {atol}), pixels "
             f"differing {flip_share:.4%} (bound {SMALL_PIXEL_FLIP_SHARE:.0%}),"
             f" max level difference {flips.max().item()}")
-        if not (max(ctx_err, lat_err) <= SMALL_LATENT_ATOL
+        if not (max(ctx_err, lat_err) <= atol
                 and flip_share <= SMALL_PIXEL_FLIP_SHARE
                 and flips.max().item() <= 1):
-            raise AssertionError(f"small slice ({path['sampler']}): the card "
+            raise AssertionError(f"small slice {path['name']}: the card "
                                  f"disagrees with the CPU")
+    _check_rollout_variants(on_card["pixel"], frames,
+                            "f32 at small width on the card",
+                            SMALL_CACHED_FRAME1_REL_L2, INT8_REL_L2)
 
 
 # Device-time buckets of the profile, by kernel name; the first match wins.
@@ -635,31 +963,46 @@ PROFILE_BUCKETS = (
 )
 
 
-def phase_profile(models):
-    """One warm batch of each path (predict + the final decode, what
-    ``serve`` runs per batch) under torch.profiler, after two unprofiled
-    ones whose wall times give the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-    for path in PATHS:
-        codec, predict = _predict_fn(models, FRAME, HI_RES, PRED, path)
+def profile_batches(models):
+    """(name, one warm batch) of each profiled path: predict + the final
+    decode (what ``serve`` runs per batch), or one image of an SD path."""
+    by_name = {p["name"]: p for p in PATHS}
+    for name in REFINER_PATHS + ("pixel_ar16_kvcache",):
+        path = by_name[name]
+        codec, predict = _predict_fn(models, path)
         frames = np.random.default_rng(2).integers(
             0, 256, (path["batch_clips"], CONTEXT, FRAME, FRAME, 3),
             dtype=np.uint8)
 
-        def batch():
+        def batch(codec=codec, predict=predict, frames=frames):
             with torch.inference_mode():
                 context, preds = predict(frames)
                 seq = torch.cat([context[:, :-1], preds], dim=1)
-                codec.decode_latents(seq.reshape(-1, seq.shape[-1]))
-            torch.cuda.synchronize()
+                codec.decode_latents(seq.reshape(-1, seq.shape[-1])).cpu()
+        yield f"{name} B={path['batch_clips']}", batch
+    pipe, emb, img = sd_inputs(models)
+    yield "sd_txt2img_lms50 B=1", lambda: run_sd(pipe, SD_PATHS[0], emb,
+                                                 img).cpu()
 
-        walls = []
+
+def phase_profile(models):
+    """One warm batch of each profiled path under torch.profiler. Every
+    path's two unprofiled batches, whose wall times give the device's idle
+    share, run before the first trace: once the profiler has been on, every
+    later launch of the process costs the host more."""
+    from torch.profiler import ProfilerActivity, profile
+    batches, walls = list(profile_batches(models)), {}
+    for path, batch in batches:
+        walls[path] = []
         for _ in range(2):
             t0 = time.perf_counter()
             batch()
-            walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls[path].append(time.perf_counter() - t0)
+    for path, batch in batches:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             batch()
+            torch.cuda.synchronize()
         buckets, count, total = collections.Counter(), 0, 0.0
         by_kernel = []
         for e in prof.key_averages():
@@ -669,22 +1012,22 @@ def phase_profile(models):
             if not us:
                 continue
             key = e.key.lower()
-            name = next((b for b, words in PROFILE_BUCKETS
-                         if any(w in key for w in words)), "other")
-            buckets[name] += us / 1e3
-            by_kernel.append((us / 1e3, e.count, name, e.key))
+            bucket = next((b for b, words in PROFILE_BUCKETS
+                           if any(w in key for w in words)), "other")
+            buckets[bucket] += us / 1e3
+            by_kernel.append((us / 1e3, e.count, bucket, e.key))
             total += us / 1e3
             count += e.count
         if not total:
             raise AssertionError("profile: the trace shows no device time")
-        log(f"profile: {path['name']} B={path['batch_clips']}: unprofiled "
-            f"wall {walls[0]:.3f} s, {walls[1]:.3f} s; device time "
-            f"{total:.1f} ms in {count} kernels and copies; device idle "
-            f"{1 - total / 1e3 / min(walls):.0%} of the faster wall")
-        for name, ms in buckets.most_common():
-            log(f"profile:   {name}: {ms:.1f} ms ({ms / total:.1%})")
-        for ms, n, name, key in sorted(by_kernel, reverse=True)[:25]:
-            log(f"profile:     {ms:.1f} ms x{n} [{name}] {key[:110]}")
+        log(f"profile: {path}: unprofiled wall {walls[path][0]:.3f} s, "
+            f"{walls[path][1]:.3f} s; device time {total:.1f} ms in {count} "
+            f"kernels and copies; device idle "
+            f"{1 - total / 1e3 / min(walls[path]):.0%} of the faster wall")
+        for bucket, ms in buckets.most_common():
+            log(f"profile:   {bucket}: {ms:.1f} ms ({ms / total:.1%})")
+        for ms, n, bucket, key in sorted(by_kernel, reverse=True)[:25]:
+            log(f"profile:     {ms:.1f} ms x{n} [{bucket}] {key[:110]}")
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -712,8 +1055,8 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
 def phase_tune(sigs):
     """The rule that picks the NHWC body's mode (``plan_for`` in
     csrc/groupnorm_silu_nhwc.cu) against the alternatives, at every bf16
-    GroupNorm signature of the dry run: the body as planned, each mode
-    pinned, and the NCHW body on a contiguous copy, timed inside CUDA graphs
+    GroupNorm signature of the two 512px refiner paths: the body as planned,
+    each mode pinned, and the NCHW body on a contiguous copy, timed inside CUDA graphs
     (the same tensor again and again, so one that fits the L2 cache is read
     from there), then calls x ms over one batch of each path."""
     dtype = torch.bfloat16
@@ -774,9 +1117,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tune", action="store_true",
                         help="also time the GroupNorm NHWC body's modes at "
-                             "every path shape")
+                             "every shape of the 512px refiner paths")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one warm batch of each path")
+                        help="also profile one warm batch of four paths")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -787,18 +1130,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    models = full_width_models()
+    models = mode_models(full_width_models(), FLAGSHIP)
     sigs = path_signatures(models)
-    summary = phase_kernel(sigs)
+    summary = phase_kernel(merge_signatures(sigs.values()))
     launches = {k: 0 for k in KERNELS}
     for path in PATHS:
         for k, n in phase_serve(models, path).items():
-            launches[k] = launches.get(k, 0) + n
+            launches[k] += n
+    for k, n in phase_sd(models).items():
+        launches[k] += n
     phase_check(models)
     if args.profile:
         phase_profile(models)
     if args.tune:
-        phase_tune(sigs)
+        phase_tune(merge_signatures(sigs[name] for name in REFINER_PATHS))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

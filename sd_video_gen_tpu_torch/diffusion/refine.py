@@ -1,12 +1,14 @@
 """Per-frame partial-denoise refinement for the AR rollout (``--denoise``).
 
 Counterpart of ``make_denoise_refiner`` in
-``sd_video_gen_tpu/diffusion/refine.py`` with ``hi_res`` set: for every
-predicted latent, decode -> nearest-upscale to ``hi_res`` -> re-encode ->
+``sd_video_gen_tpu/diffusion/refine.py``. With ``hi_res`` set, for every
+predicted latent: decode -> nearest-upscale to ``hi_res`` -> re-encode ->
 noise to the level of DDIM ``timesteps[start_step]`` -> the remaining DDIM
 steps, or ``solver_steps`` DPM-Solver++(2M) steps over the same interval
 (``sampler='dpmpp'``), with guidance 0 and the empty-prompt embedding ->
-decode -> nearest-downscale -> re-encode.
+decode -> nearest-downscale -> re-encode. With ``hi_res=None`` the latent is
+denoised at its native resolution with no pixel round trip (the evaluation
+harness's variant).
 
 Nearest resizing uses half-pixel centres ('nearest-exact'), as
 ``jax.image.resize`` does: a 512 -> 64 downscale picks source pixel 8i+4,
@@ -48,7 +50,8 @@ def default_noise(start_step: int, device) -> Callable:
 
 
 def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
-                         num_inference_steps: int = 50, hi_res: int = 512,
+                         num_inference_steps: int = 50,
+                         hi_res: Optional[int] = 512,
                          noise_fn: Optional[Callable] = None,
                          sampler: str = "ddim",
                          solver_steps: Optional[int] = None) -> Callable:
@@ -58,10 +61,28 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
     The empty-prompt embedding is computed once, here.
     """
     vae_lo = VAECodec(frame_size, pipe.vae)
-    vae_hi = VAECodec(hi_res, pipe.vae)
-    h, lc = vae_hi.latent_hw, vae_hi.latent_channels
     uncond = pipe.uncond_embeddings(1)
     noise_fn = noise_fn or default_noise(start_step, pipe.device)
+
+    if hi_res is None:
+        # the VAE owns its compression factor: the grid is its latent_hw
+        h_lo, c = vae_lo.latent_hw, vae_lo.latent_channels
+
+        def refine_native(flat_latents: torch.Tensor,
+                          step: int = 0) -> torch.Tensor:
+            B = flat_latents.shape[0]
+            emb = uncond[:1].expand(2 * B, -1, -1)
+            noise = noise_fn(step, (B, h_lo, h_lo, c)).to(flat_latents.device)
+            den = pipe.i2i_scan(flat_latents.reshape(B, c, h_lo, h_lo), emb,
+                                start_step, num_inference_steps,
+                                noise=noise.permute(0, 3, 1, 2),
+                                sampler=sampler, solver_steps=solver_steps)
+            return den.reshape(B, -1)
+
+        return refine_native
+
+    vae_hi = VAECodec(hi_res, pipe.vae)
+    h, lc = vae_hi.latent_hw, vae_hi.latent_channels
 
     def refine(flat_latents: torch.Tensor, step: int = 0) -> torch.Tensor:
         B = flat_latents.shape[0]

@@ -1,7 +1,7 @@
-"""The partial denoise's samplers: DDIM (eta = 0) and DPM-Solver++(2M).
+"""The samplers: DDIM (eta = 0), DPM-Solver++(2M) and LMS (order 4).
 
-Counterparts of ``DDIMSchedule`` and ``DPMSolverPPSchedule`` in
-``sd_video_gen_tpu/diffusion/schedulers.py``.
+Counterparts of ``DDIMSchedule``, ``DPMSolverPPSchedule`` and ``LMSSchedule``
+in ``sd_video_gen_tpu/diffusion/schedulers.py``.
 
 DDIM, diffusers-0.2.3 semantics: scaled-linear betas; timesteps
 ``arange(0, N, N//S)[::-1]`` (longer than S when S does not divide N, and the
@@ -14,13 +14,18 @@ the 2nd-order multistep correction, the last step 1st order
 (``lower_order_final``) and, by default, the exact-x0 endpoint. x0 is not
 clipped.
 
+LMS, diffusers-0.2.3 ``LMSDiscreteScheduler`` for full text-to-image
+denoising: sigma-space scaling, 4th-order linear-multistep coefficients from
+integrated Lagrange polynomials (scipy, on the host, once per schedule).
+
 Constants are computed in f64 and stored as f32, as the JAX package does,
-and applied as f32 scalars. LMS is not ported yet.
+and applied as f32 scalars.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 NUM_TRAIN_TIMESTEPS = 1000
@@ -127,3 +132,68 @@ class DPMSolverPPSchedule:
         x0 = (x - float(self.sigma[i]) * eps) / float(self.alpha[i])
         d = float(self.w_cur[i]) * x0 + float(self.w_prev[i]) * x0_prev
         return float(self.c_x[i]) * x + float(self.c_d[i]) * d, x0
+
+
+class LMSSchedule:
+    """LMSDiscrete with order-4 integrated-Lagrange coefficients.
+
+    ``sigmas``: (S + 1,) f32, descending, the last 0; ``coeffs[i, k]``
+    multiplies the k-th newest derivative at step i (zero below the order
+    reached); ``timesteps``: (S,) f64, fed to the eps model.
+    """
+
+    def __init__(self, num_inference_steps: int = 50, order: int = 4):
+        from scipy import integrate
+        N = NUM_TRAIN_TIMESTEPS
+        acp = _alphas_cumprod()
+        sig_train = np.sqrt((1.0 - acp) / acp)
+        self.num_inference_steps = num_inference_steps
+        self.timesteps = np.linspace(N - 1, 0, num_inference_steps)
+        sigmas = np.interp(self.timesteps, np.arange(N), sig_train)
+        sigmas = np.concatenate([sigmas, [0.0]])
+        self.sigmas = sigmas.astype(np.float32)
+        self.order = order
+
+        coeffs = np.zeros((num_inference_steps, order))
+        for i in range(num_inference_steps):
+            o = min(i + 1, order)
+            for k in range(o):
+                def poly(tau, i=i, k=k, o=o):
+                    prod = 1.0
+                    for j in range(o):
+                        if j != k:
+                            prod *= ((tau - sigmas[i - j])
+                                     / (sigmas[i - k] - sigmas[i - j]))
+                    return prod
+                coeffs[i, k] = integrate.quad(
+                    poly, sigmas[i], sigmas[i + 1], epsrel=1e-8)[0]
+        self.coeffs = coeffs.astype(np.float32)
+
+    def scale_input(self, x, i: int):
+        """Latent input scaling 1 / sqrt(sigma^2 + 1)."""
+        s = self.sigmas[i]
+        return x / float(np.sqrt(s * s + np.float32(1.0), dtype=np.float32))
+
+    def init_noise_scale(self) -> float:
+        """Initial latents multiplier sigma[0]."""
+        return float(self.sigmas[0])
+
+    def derivative(self, eps, i: int, x):
+        """dx / dsigma at step i: (x - x0) / sigma with x0 = x - sigma eps."""
+        s = float(self.sigmas[i])
+        return (x - (x - s * eps)) / s
+
+    def step(self, eps, i: int, x, deriv_hist):
+        """One LMS step. ``deriv_hist``: (order, *x.shape), newest first.
+        Returns (x_next, new_hist)."""
+        d = self.derivative(eps, i, x)
+        hist = torch.cat([d[None], deriv_hist[:-1]], dim=0)
+        # tensordot(coeffs[i], hist) with the weights as f32 scalars: no
+        # host-to-device copy per step
+        acc = float(self.coeffs[i, 0]) * hist[0]
+        for k in range(1, self.order):
+            acc = acc + float(self.coeffs[i, k]) * hist[k]
+        return x + acc, hist
+
+    def init_history(self, x):
+        return x.new_zeros((self.order,) + tuple(x.shape))

@@ -52,6 +52,9 @@ class VAECodec:
         x = torch.round(x * 255.0).to(torch.uint8)
         return x.permute(0, 2, 3, 1).contiguous()   # no copy: x is NHWC
 
-    def encode_batch(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, 3) uint8 -> (B, T + 1, latent_dim): SOS, then frames."""
-        return add_sos(self.encode_frames(frames))
+    def encode_batch(self, frames: torch.Tensor,
+                     use_sos: bool = True) -> torch.Tensor:
+        """(B, T, H, W, 3) uint8 -> (B, T + 1, latent_dim): SOS, then frames
+        (no SOS and T tokens with ``use_sos=False``)."""
+        lat = self.encode_frames(frames)
+        return add_sos(lat) if use_sos else lat

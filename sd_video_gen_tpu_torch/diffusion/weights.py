@@ -12,10 +12,16 @@ state_dict of the port's counterpart module, whose names follow the diffusers
 Fused weights: the JAX UNet keeps GEGLU as two projections (``geglu_proj_h``
 and ``geglu_proj_gate``), the port one ``ff.net.0.proj`` (h rows first); the
 JAX transformer splits its cross-attention into q/k/v, the port keeps
-``multihead_attn.in_proj_weight`` (q, k, v rows).
+``multihead_attn.in_proj_weight`` (q, k, v rows). The transformer's mode
+parameters keep the reference's names: ``learned_tgt``, ``query_pos``,
+``project_image_embedding``, and ``tgt_norm`` -> ``norm``.
 
 ``load_jax_params`` checks exhaustiveness both ways: every JAX leaf is used
 exactly once, and every port parameter is assigned with its shape.
+
+``quantized_tree_from_jax`` turns the JAX package's int8 serving trees
+(``quantize_frame_transformer``, ``quantize_rollout_params``) into the port's
+(``ops/quantized.py``), value for value.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ _RULES = {
         (r"^dec_(\d+)/", r"transformer/decoder/layers/\1/"),
         (r"^enc_norm/", "transformer/encoder/norm/"),
         (r"^dec_norm/", "transformer/decoder/norm/"),
+        (r"^tgt_norm/", "norm/"),
         (r"/self_attn/qkv/(\w+)$", r"/self_attn/in_proj_\1"),
         (r"/cross_attn/q/(\w+)$", r"/multihead_attn/in_proj_\1#0"),
         (r"/cross_attn/k/(\w+)$", r"/multihead_attn/in_proj_\1#1"),
@@ -162,3 +169,72 @@ def load_jax_params(module: torch.nn.Module, kind: str, jax_params):
             dtype=want[k].dtype, device=want[k].device)
         for k, v in sd.items()}, strict=True)
     return module
+
+
+def _is_qtensor(node) -> bool:
+    return (not isinstance(node, dict) and hasattr(node, "values")
+            and hasattr(node, "scale"))
+
+
+def quantized_tree_from_jax(jax_tree: dict, device="cpu",
+                            dtype=torch.float32) -> dict:
+    """The JAX package's int8 tree of a FrameTransformer (mode 'ar') -> the
+    port's (``ops/quantized.py``), with the same int8 values and scales.
+
+    Takes either layout: ``quantize_frame_transformer``'s (``enc`` / ``dec``
+    lists) or ``quantize_rollout_params``'s (the flax tree, ``enc_0`` ...
+    under ``params``), with numpy or JAX arrays as leaves. ``dtype`` is the
+    compute dtype the tree serves at (``cached_rollout``). Biases and norms
+    are taken as f32. Every JAX entry must be used."""
+    from sd_video_gen_tpu_torch.ops.quantized import QTensor
+    tree = dict(jax_tree.get("params", jax_tree))
+    for side in ("enc", "dec"):
+        if side not in tree:
+            tree[side] = []
+            while f"{side}_{len(tree[side])}" in tree:
+                tree[side].append(tree.pop(f"{side}_{len(tree[side])}"))
+    ten = lambda a: torch.from_numpy(np.array(a)).to(device)
+
+    def dense(*parts):
+        """One or more JAX {q: QTensor, bias} fused along the outputs."""
+        if not all(set(p) == {"q", "bias"} and _is_qtensor(p["q"])
+                   for p in parts):
+            raise ValueError("quantized_tree_from_jax: expected {q, bias}, "
+                             f"got {[sorted(p) for p in parts]}")
+        values = np.concatenate([np.asarray(p["q"].values) for p in parts], 1)
+        scale = np.concatenate([np.asarray(p["q"].scale) for p in parts])
+        bias = np.concatenate([np.asarray(p["bias"]) for p in parts])
+        # (in, out) values over the (out, in) weight's own memory
+        return {"q": QTensor(ten(values.T).contiguous().t(), ten(scale)),
+                "bias": ten(bias)}
+
+    norm = lambda n: {"weight": ten(n["scale"]), "bias": ten(n["bias"])}
+
+    def layer(l, decoder):
+        ffn = l.get("ffn", l)
+        want = {"self_attn", "ffn", "norm1", "norm2"}
+        out = {"self_attn": {"qkv": dense(l["self_attn"]["qkv"]),
+                             "out": dense(l["self_attn"]["out"])},
+               "lin1": dense(ffn["lin1"]), "lin2": dense(ffn["lin2"]),
+               "norm1": norm(l["norm1"]), "norm2": norm(l["norm2"])}
+        if decoder:
+            c = l["cross_attn"]
+            out["cross_attn"] = {"q": dense(c["q"]),
+                                 "kv": dense(c["k"], c["v"]),
+                                 "out": dense(c["out"])}
+            out["norm3"] = norm(l["norm3"])
+            want |= {"cross_attn", "norm3"}
+        if set(l) != want:
+            raise ValueError(f"quantized_tree_from_jax: layer keys "
+                             f"{sorted(l)}, expected {sorted(want)}")
+        return out
+
+    want = {"embedding", "out", "enc_norm", "dec_norm", "enc", "dec"}
+    if set(tree) != want:
+        raise ValueError(f"quantized_tree_from_jax: keys {sorted(tree)}, "
+                         f"expected {sorted(want)}")
+    return {"dtype": dtype, "embedding": dense(tree["embedding"]),
+            "out": dense(tree["out"]), "enc_norm": norm(tree["enc_norm"]),
+            "dec_norm": norm(tree["dec_norm"]),
+            "enc": [layer(l, False) for l in tree["enc"]],
+            "dec": [layer(l, True) for l in tree["dec"]]}

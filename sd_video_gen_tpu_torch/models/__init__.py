@@ -5,6 +5,17 @@ from __future__ import annotations
 import torch
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card, and raises
+    where there is none: the CPU has to be asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run on "
+                               "the host")
+        device = "cuda"
+    return torch.device(device)
+
+
 def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0):
     """``module_cls(cfg)`` initialised from ``seed`` directly on ``device``
     (a full-width UNet is never materialised on the host first), cast to
@@ -16,12 +27,7 @@ def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0):
     (``reset_parameters``) draw from torch's global generators and take no
     ``torch.Generator``, so the seed goes to those; they are forked around
     the construction, which leaves the caller's random state as it was."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build: no CUDA device; pass device='cpu' to "
-                               "build the model on the host")
-        device = "cuda"
-    device = torch.device(device)
+    device = default_device(device)
     with torch.random.fork_rng(
             devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)

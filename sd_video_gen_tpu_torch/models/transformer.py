@@ -1,12 +1,26 @@
-"""The frame-latent seq2seq transformer (mode 'ar') in PyTorch.
+"""The frame-latent seq2seq transformer family in PyTorch.
 
-Counterpart of ``sd_video_gen_tpu/models/transformer.py`` for the AR serving
-path. Semantics of torch ``nn.Transformer`` defaults: post-LN, ReLU,
+Counterpart of ``sd_video_gen_tpu/models/transformer.py``. One model with
+mode flags:
+
+  - 'ar': teacher-forced next-frame AR;
+  - 'future': k-step single shot; adds a ``learned_tgt`` parameter
+    (1, K, latent_dim) that checkpoints carry and the forward does not use;
+  - 'learned_tgt': DETR-style learnable queries; the decoder input is
+    LN(zeros) + ``query_pos``, built in latent space and then embedded;
+  - 'text': a class-name text embedding concatenated to every token, so the
+    transformer is ``dim_model + text_embed_dim`` wide (``model_width``);
+    the embeddings come from ``models/text_embed.py`` in the caller.
+
+'diff' (residual prediction) is a strategy of the caller, not a model.
+Semantics of torch ``nn.Transformer`` defaults: post-LN, ReLU,
 dim_feedforward 2048, LayerNorm eps 1e-5, a final LayerNorm after each
 stack; embedding * sqrt(D) plus the sinusoidal table. Inference only (no
 dropout). Parameter names follow the reference's own ``nn.Transformer``
 state_dict (``transformer.encoder.layers.0.self_attn.in_proj_weight``,
-``...multihead_attn...``, ``linear1``, ``norm1``, ``transformer.decoder.norm``),
+``...multihead_attn...``, ``linear1``, ``norm1``, ``transformer.decoder.norm``;
+``learned_tgt``, ``query_pos`` with its LayerNorm ``norm``,
+``project_image_embedding`` in place of ``embedding`` in text mode),
 so its checkpoints map one to one. Sequences are <= 16 frame tokens: the
 attention here is plain PyTorch.
 """
@@ -32,17 +46,32 @@ class FrameTransformerConfig:
     num_decoder_layers: int = 8
     dim_feedforward: int = 2048  # torch nn.Transformer default
     max_len: int = 64            # positional table window
+    mode: str = "ar"             # ar | future | learned_tgt | text
+    frames_to_predict: int = 5   # used by future / learned_tgt modes
+    text_embed_dim: int = 384    # MiniLM-L6-v2 embedding width (text mode)
     pe_mode: str = "timestep"    # 'timestep' | 'reference_batch'
     #   'reference_batch' reproduces the reference's PositionalEncoding bug
     #   (PE(batch index) added to every timestep of that item), as the JAX
     #   package does for converted reference checkpoints.
 
     def __post_init__(self):
-        if self.dim_model % self.num_heads:
-            raise ValueError(f"dim_model {self.dim_model} must be divisible "
-                             f"by num_heads={self.num_heads}")
+        if self.mode not in ("ar", "future", "learned_tgt", "text"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.model_width % self.num_heads:
+            raise ValueError(
+                f"model width {self.model_width} (dim_model"
+                f"{'+text_embed_dim' if self.mode == 'text' else ''}) must be "
+                f"divisible by num_heads={self.num_heads}")
         if self.pe_mode not in ("timestep", "reference_batch"):
             raise ValueError(f"unknown pe_mode {self.pe_mode!r}")
+
+    @property
+    def model_width(self) -> int:
+        """The transformer's width: text mode concatenates the text
+        embedding to every token."""
+        if self.mode == "text":
+            return self.dim_model + self.text_embed_dim
+        return self.dim_model
 
 
 class MultiheadAttention(nn.Module):
@@ -81,7 +110,7 @@ class MultiheadAttention(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: FrameTransformerConfig):
         super().__init__()
-        D = cfg.dim_model
+        D = cfg.model_width
         self.self_attn = MultiheadAttention(D, cfg.num_heads)
         self.linear1 = nn.Linear(D, cfg.dim_feedforward)
         self.linear2 = nn.Linear(cfg.dim_feedforward, D)
@@ -96,7 +125,7 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: FrameTransformerConfig):
         super().__init__()
-        D = cfg.dim_model
+        D = cfg.model_width
         self.self_attn = MultiheadAttention(D, cfg.num_heads)
         self.multihead_attn = MultiheadAttention(D, cfg.num_heads)
         self.linear1 = nn.Linear(D, cfg.dim_feedforward)
@@ -121,7 +150,7 @@ class _Stack(nn.Module):
 class _Seq2Seq(nn.Module):
     def __init__(self, cfg: FrameTransformerConfig):
         super().__init__()
-        D = cfg.dim_model
+        D = cfg.model_width
         self.encoder = _Stack([EncoderLayer(cfg)
                                for _ in range(cfg.num_encoder_layers)], D)
         self.decoder = _Stack([DecoderLayer(cfg)
@@ -131,26 +160,52 @@ class _Seq2Seq(nn.Module):
 class FrameTransformer(nn.Module):
     """Seq2seq encoder-decoder over flattened frame latents, batch-first.
 
-    ``model(src, tgt, tgt_mask)`` -> (B, T_tgt, latent_dim) f32.
+    ``model(src, tgt, tgt_mask=None, text_embeds=None)`` ->
+    (B, T_tgt, latent_dim) f32. ``text_embeds`` (B, text_embed_dim) is
+    required in text mode and ignored otherwise; 'learned_tgt' ignores
+    ``tgt`` and decodes its ``frames_to_predict`` queries.
     """
 
     def __init__(self, cfg: FrameTransformerConfig):
         super().__init__()
         self.cfg = cfg
-        D = cfg.dim_model
-        self.embedding = nn.Linear(cfg.latent_dim, D)
+        D, L, K = cfg.model_width, cfg.latent_dim, cfg.frames_to_predict
+        if cfg.mode == "future":
+            self.learned_tgt = nn.Parameter(torch.randn(1, K, L))
+        if cfg.mode == "learned_tgt":
+            self.query_pos = nn.Parameter(torch.rand(K, L))
+            self.norm = nn.LayerNorm(L, eps=1e-5)
+        if cfg.mode == "text":
+            self.project_image_embedding = nn.Linear(L, cfg.dim_model)
+        else:
+            self.embedding = nn.Linear(L, D)
         self.transformer = _Seq2Seq(cfg)
-        self.out = nn.Linear(D, cfg.latent_dim)
+        self.out = nn.Linear(D, L)
         self.register_buffer("pos_table", sinusoidal_positions(cfg.max_len, D),
                              persistent=False)
 
-    def forward(self, src, tgt, tgt_mask=None):
-        dt = self.embedding.weight.dtype
-        scale = math.sqrt(self.cfg.dim_model)
-        src = self.embedding(src.to(dt)) * scale
-        tgt = self.embedding(tgt.to(dt)) * scale
+    def forward(self, src, tgt, tgt_mask=None, text_embeds=None):
+        cfg = self.cfg
+        dt = self.out.weight.dtype
+        scale = math.sqrt(cfg.model_width)
+        if cfg.mode == "learned_tgt":
+            q = self.norm(torch.zeros_like(self.query_pos)) + self.query_pos
+            tgt = q[None].expand(src.shape[0], -1, -1)
+        if cfg.mode == "text":
+            if text_embeds is None:
+                raise ValueError(
+                    "text mode requires text_embeds (B, text_embed_dim)")
+            t = text_embeds.to(dt)[:, None]
+            proj = self.project_image_embedding
+            src = torch.cat([proj(src.to(dt)),
+                             t.expand(-1, src.shape[1], -1)], dim=-1) * scale
+            tgt = torch.cat([proj(tgt.to(dt)),
+                             t.expand(-1, tgt.shape[1], -1)], dim=-1) * scale
+        else:
+            src = self.embedding(src.to(dt)) * scale
+            tgt = self.embedding(tgt.to(dt)) * scale
         pe = self.pos_table.to(dt)
-        if self.cfg.pe_mode == "reference_batch":
+        if cfg.pe_mode == "reference_batch":
             src = src + pe[: src.shape[0]][:, None, :]
             tgt = tgt + pe[: tgt.shape[0]][:, None, :]
         else:

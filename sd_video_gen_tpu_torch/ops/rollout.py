@@ -19,10 +19,10 @@ import torch
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
 
 
-def _predict_next(model, seq, refine_fn, step: int):
+def _predict_next(model, seq, refine_fn, model_kwargs, step: int):
     """Full-sequence forward; take the last predicted latent."""
     mask = causal_mask(seq.shape[1], device=seq.device)
-    nxt = model(seq, seq, tgt_mask=mask)[:, -1]
+    nxt = model(seq, seq, tgt_mask=mask, **model_kwargs)[:, -1]
     if refine_fn is not None:
         nxt = refine_fn(nxt, step)
     return nxt
@@ -30,14 +30,17 @@ def _predict_next(model, seq, refine_fn, step: int):
 
 def ar_rollout(model: Callable, context: torch.Tensor, pred_frames: int,
                window: int = 5,
-               refine_fn: Optional[Callable] = None) -> torch.Tensor:
+               refine_fn: Optional[Callable] = None,
+               model_kwargs: Optional[dict] = None) -> torch.Tensor:
     """Roll ``model(src, tgt, tgt_mask=...)`` forward ``pred_frames`` steps.
 
     context: (B, T0, L), SOS + context-frame latents (``encode_batch``).
     refine_fn: optional ``(latents (B, L), step) -> (B, L)`` hook.
+    model_kwargs: passed to every model call (text mode's ``text_embeds``).
     Returns (B, pred_frames, L).
     """
-    first = _predict_next(model, context, refine_fn, 0)
+    model_kwargs = model_kwargs or {}
+    first = _predict_next(model, context, refine_fn, model_kwargs, 0)
     preds = [first]
     frames = context[:, 1:]  # drop SOS
     buf = torch.cat([frames[:, :-1], first[:, None]], dim=1)[:, -window:]
@@ -45,7 +48,7 @@ def ar_rollout(model: Callable, context: torch.Tensor, pred_frames: int,
         pad = buf[:, :1].expand(-1, window - buf.shape[1], -1)
         buf = torch.cat([pad, buf], dim=1)
     for i in range(1, pred_frames):
-        nxt = _predict_next(model, buf, refine_fn, i)
+        nxt = _predict_next(model, buf, refine_fn, model_kwargs, i)
         buf = torch.cat([buf[:, 1:], nxt[:, None]], dim=1)
         preds.append(nxt)
     return torch.stack(preds, dim=1)

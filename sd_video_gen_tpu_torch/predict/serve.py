@@ -5,7 +5,8 @@ then answers length-prefixed requests on a Unix socket until ``shutdown``:
 
   {"op": "ping"}      -> {"ok": true, "served": n}
   {"op": "shutdown"}  -> {"ok": true, "served": n}, the loop returns
-  {"op": "predict", "shape": [B, T, H, W, 3]} + raw uint8 frames
+  {"op": "predict", "shape": [B, T, H, W, 3], "labels": [..]?}
+      + raw uint8 frames
       -> {"shape": [B, T_out, H, W, 3], "is_pred": [...], "latency_s": ..}
          + raw uint8 images (context minus its last frame, then predictions)
 
@@ -72,16 +73,19 @@ def shutdown(sock_path: str, timeout_s: float = 10.0) -> dict:
 
 
 def request(sock_path: str, frames: np.ndarray,
+            labels: list[int] | None = None,
             timeout_s: float = 600.0) -> tuple[np.ndarray, list[bool], dict]:
-    """One round trip: uint8 frames (B, T, H, W, 3) -> ``(images (B, T_out,
-    H, W, 3) uint8, is_pred flags, header)``."""
+    """One round trip: uint8 frames (B, T, H, W, 3), and class ids for a
+    text-mode server, -> ``(images (B, T_out, H, W, 3) uint8, is_pred flags,
+    header)``."""
     frames = np.ascontiguousarray(frames, dtype=np.uint8)
     if frames.ndim != 5 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be (B,T,H,W,3) uint8, got "
                          f"{frames.shape}")
-    resp, payload = _call(sock_path, {"op": "predict",
-                                      "shape": list(frames.shape)},
-                          frames.tobytes(), timeout_s)
+    header = {"op": "predict", "shape": list(frames.shape)}
+    if labels is not None:
+        header["labels"] = [int(x) for x in labels]
+    resp, payload = _call(sock_path, header, frames.tobytes(), timeout_s)
     if "error" in resp:
         raise RuntimeError(f"server error: {resp['error']}")
     imgs = np.frombuffer(payload, np.uint8).reshape(resp["shape"])
@@ -104,17 +108,21 @@ def wait_ready(sock_path: str, deadline_s: float = 900.0,
 
 
 def serve(sock_path: str, predict, decode, *, batch_clips: int,
-          frames_per_clip: int, frame_size: int) -> None:
+          frames_per_clip: int, frame_size: int, embedder=None,
+          warmup: bool = True) -> None:
     """Run the serving loop (blocks until a shutdown request).
 
-    ``predict(frames_u8 (B, T, H, W, 3)) -> (context (B, T, L), preds
-    (B, P, L))`` and ``decode(latents (N, L)) -> (N, H, W, 3) uint8`` are the
-    built entry points (``make_predict_fn``, ``VAECodec.decode_latents``).
+    ``predict(frames_u8 (B, T, H, W, 3), text_embeds) -> (context (B, T, L),
+    preds (B, P, L))`` and ``decode(latents (N, L)) -> (N, H, W, 3) uint8``
+    are the built entry points (``make_predict_fn``, a codec's
+    ``decode_latents``). ``embedder`` (text mode) maps a request's ``labels``
+    to the text embeddings; a request without labels gets class 0.
+    ``warmup`` runs one batch of the serving shape before the socket opens.
     """
     shape = (batch_clips, frames_per_clip, frame_size, frame_size, 3)
 
     @torch.inference_mode()
-    def run_batch(frames_np: np.ndarray):
+    def run_batch(frames_np: np.ndarray, labels):
         n_items = frames_np.shape[0]
         if n_items > batch_clips:
             raise ValueError(f"batch of {n_items} exceeds the compiled "
@@ -122,7 +130,12 @@ def serve(sock_path: str, predict, decode, *, batch_clips: int,
         if n_items < batch_clips:  # pad: one serving shape throughout
             pad = np.repeat(frames_np[-1:], batch_clips - n_items, axis=0)
             frames_np = np.concatenate([frames_np, pad], axis=0)
-        context, preds = predict(frames_np)
+        text_embeds = None
+        if embedder is not None:
+            lab = list(labels or [0] * n_items)
+            lab += [lab[-1]] * (batch_clips - len(lab))
+            text_embeds = embedder(lab)
+        context, preds = predict(frames_np, text_embeds)
         seq = torch.cat([context[:, :-1], preds], dim=1)
         T_out = seq.shape[1]
         imgs = decode(seq.reshape(-1, seq.shape[-1])).cpu().numpy()
@@ -132,7 +145,8 @@ def serve(sock_path: str, predict, decode, *, batch_clips: int,
         return np.ascontiguousarray(imgs, dtype=np.uint8), is_pred
 
     t0 = time.perf_counter()
-    run_batch(np.zeros(shape, np.uint8))
+    if warmup:
+        run_batch(np.zeros(shape, np.uint8), None)
     ready_s = time.perf_counter() - t0
 
     if os.path.exists(sock_path):
@@ -165,7 +179,8 @@ def serve(sock_path: str, predict, decode, *, batch_clips: int,
                     try:
                         frames = np.frombuffer(payload, np.uint8).reshape(
                             header["shape"])
-                        imgs, is_pred = run_batch(frames)
+                        imgs, is_pred = run_batch(frames,
+                                                  header.get("labels"))
                     except Exception as e:  # report, keep serving
                         traceback.print_exc()
                         _send_msg(conn, {"error": str(e)})

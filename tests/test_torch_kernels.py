@@ -50,10 +50,17 @@ def cuda():
                                    (8, 4096, 512), (40, 64, 512),
                                    (3, 65, 160), (2, 130, 40), (2, 65, 512),
                                    (2, 130, 256), (2, 65, 128), (2, 64, 64),
-                                   (1, 36, 36)])
+                                   (1, 36, 36),
+                                   (16, 4096, 40), (16, 1024, 80),
+                                   (16, 256, 160), (16, 64, 160),
+                                   (64, 64, 40), (64, 16, 80), (64, 4, 160),
+                                   (64, 1, 160), (160, 64, 512),
+                                   (640, 64, 512)])
 def test_flash_attention_matches_plain(cuda, shape, dtype, atol):
-    """Path shapes, plus ragged T (T = 65 and 130: one or two keys past a
-    tile on the two-stage ring), head dims between the kernel's buckets (run
+    """Path shapes (the classifier-free-guidance pair doubles BH to 16; the
+    native 64px refiner takes the UNet to T = 64, 16, 4 and 1, shorter than
+    a key tile; the VAE codec at 160 and 640 frames), plus ragged T (T = 65
+    and 130: one or two keys past a tile on the two-stage ring), head dims between the kernel's buckets (run
     in the next bucket up) and d = 36 (not a multiple of 8: the FMA body in
     bf16 too)."""
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -123,7 +130,8 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
     ((8, 320, 64, 64), 32), ((8, 2560, 8, 8), 32), ((1, 1280, 8, 8), 32),
     ((40, 512, 8, 8), 32),
     ((1, 12, 5, 7), 3), ((2, 6, 3, 3), 2), ((3, 64, 1, 1), 32),
-    ((1, 8, 1, 4099), 1)])
+    ((1, 8, 1, 4099), 1),
+    ((2, 320, 64, 64), 32), ((8, 1280, 1, 1), 32), ((32, 128, 64, 64), 32)])
 def test_groupnorm_silu_matches_plain(cuda, shape, groups, silu, eps, dtype):
     """Path shapes (the largest slab, VAE and UNet levels at B=1 and 8), plus
     rows that are not a whole number of 16-byte vectors (scalar variant),
@@ -203,7 +211,17 @@ def _check_nhwc(x, w, b, groups, eps, silu, mode=None):
     ((2, 64, 3, 5), 32, None), ((2, 64, 65, 33), 32, "cluster"),
     ((1, 12, 5, 7), 3, None), ((2, 6, 3, 3), 2, None),
     ((3, 64, 1, 1), 32, None), ((1, 8, 1, 4099), 1, None),
-    ((2, 36, 9, 7), 6, None)])
+    ((2, 36, 9, 7), 6, None),
+    # the classifier-free-guidance pair (N = 2), the native 64px refiner
+    # (8x8 down to 1x1 at B = 8, where channels-last and contiguous strides
+    # coincide) and the VAE codec at 32 to 640 frames
+    ((2, 320, 64, 64), 32, None), ((2, 640, 32, 32), 32, None),
+    ((2, 1280, 16, 16), 32, None), ((2, 2560, 8, 8), 32, None),
+    ((8, 320, 8, 8), 32, None), ((8, 640, 4, 4), 32, None),
+    ((8, 1280, 2, 2), 32, None), ((8, 1280, 1, 1), 32, None),
+    ((8, 2560, 1, 1), 32, None), ((32, 128, 64, 64), 32, None),
+    ((160, 128, 64, 64), 32, None), ((640, 512, 8, 8), 32, None),
+    ((640, 256, 32, 32), 32, None)])
 def test_groupnorm_silu_nhwc_matches_plain(cuda, shape, groups, mode, silu,
                                            eps, dtype):
     x, w, b = _gn_inputs(shape, dtype, cuda)

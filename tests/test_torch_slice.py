@@ -3,7 +3,7 @@ ar_rollout (full and short context), make_predict_fn with the partial-denoise
 refiner (JAX's fold-in noise injected) with DDIM at B=2 and DPM-Solver++ at
 B=3, the serve loop over a socket (ragged requests padded), its wire framing
 against the JAX package's, and import hygiene (no jax / flax / optax / yaml
-/ cv2, and nothing of the JAX package, anywhere in the port or in
+/ cv2 / transformers, and nothing of the JAX package, anywhere in the port or in
 chip_smoke.py's imports).
 
 Tolerance: f32 on both sides. The rollout without refinement agrees to
@@ -269,18 +269,23 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
         for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py"))
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'yaml', 'cv2', 'sd_video_gen_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'cv2', 'transformers',\n"
+        "          'sd_video_gen_tpu'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    __import__(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'yaml', 'cv2', 'jaxlib',\n"
-        "        'sd_video_gen_tpu')\n"
+        "        'transformers', 'sd_video_gen_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     assert {"sd_video_gen_tpu_torch.ops.attention",
-            "sd_video_gen_tpu_torch.ops.groupnorm"} <= set(mods)
+            "sd_video_gen_tpu_torch.ops.groupnorm",
+            "sd_video_gen_tpu_torch.ops.quantized",
+            "sd_video_gen_tpu_torch.ops.cached_rollout",
+            "sd_video_gen_tpu_torch.models.identity",
+            "sd_video_gen_tpu_torch.models.text_embed"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -92,16 +92,46 @@ def clip_pair(seed: int = 0):
 
 
 def transformer_pair(latent_dim: int, seed: int = 0,
-                     pe_mode: str = "timestep"):
-    jm = JFrameTransformer(JFTConfig(latent_dim=latent_dim, dropout_p=0.0,
-                                     pe_mode=pe_mode, **TINY_FT))
+                     pe_mode: str = "timestep", mode: str = "ar", **extra):
+    """``extra``: ``frames_to_predict`` / ``text_embed_dim`` / ``max_len``
+    for both configs."""
+    kw = dict(latent_dim=latent_dim, pe_mode=pe_mode, mode=mode,
+              **{**TINY_FT, **extra})
+    jm = JFrameTransformer(JFTConfig(dropout_p=0.0, **kw))
     x = jnp.zeros((1, 3, latent_dim))
-    params = random_params(jm, seed, x, x, tgt_mask=jcausal_mask(3))
+    text = (jnp.zeros((1, jm.cfg.text_embed_dim)) if mode == "text" else None)
+    params = random_params(jm, seed, x, x, tgt_mask=jcausal_mask(3),
+                           text_embeds=text)
     pm = load_jax_params(
-        build(FrameTransformer, FrameTransformerConfig(
-            latent_dim=latent_dim, pe_mode=pe_mode, **TINY_FT), "cpu"),
+        build(FrameTransformer, FrameTransformerConfig(**kw), "cpu"),
         "transformer", np_tree(params))
     return jm, params, pm
+
+
+def sd_pair(frame_size: int, seeds=(20, 21, 22)):
+    """The JAX ``SDPipeline`` and the port's over the same tiny VAE, UNet and
+    CLIP-text weights."""
+    from sd_video_gen_tpu.diffusion.sd import SDPipeline as JSDPipeline
+    from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
+    _, vparams, pvae = vae_pair(seed=seeds[0])
+    _, uparams, punet = unet_pair(seed=seeds[1])
+    _, cparams, pclip = clip_pair(seed=seeds[2])
+    jpipe = JSDPipeline(frame_size=frame_size, vae_params=vparams,
+                        unet_params=uparams, clip_params=cparams,
+                        vae_cfg=JVAEConfig(**TINY_VAE),
+                        unet_cfg=JUNetConfig(**TINY_UNET),
+                        clip_cfg=JCLIPConfig(**TINY_CLIP))
+    return jpipe, SDPipeline(pvae, punet, pclip)
+
+
+def nchw(x):
+    """JAX NHWC latents -> the port's (B, C, H, W) CPU tensor."""
+    return t(np.asarray(x).transpose(0, 3, 1, 2))
+
+
+def nhwc(x: torch.Tensor) -> np.ndarray:
+    """The port's (B, C, H, W) latents -> NHWC numpy, as the JAX package's."""
+    return x.permute(0, 2, 3, 1).numpy()
 
 
 def japply(module, params, *args, **kw):
