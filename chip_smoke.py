@@ -59,11 +59,34 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               against frame 1 of the full rollout, and the int8 rollouts
               against the bf16 ones, at full width; the slices at small
               widths in f32 on the card (kernels) against the CPU (plain)
-  7. profile  only with ``--profile``: one warm batch of four paths under
+  7. train    three training paths through the port's ``Trainer`` (names and
+              sizes are the JAX bench's), each 2 warm-up optimizer steps, 8
+              timed ones (one synchronise at the end) and one more for the
+              last loss, on one fixed seeded batch with dropout on:
+              ``train_flagship`` (batch 6, 5 + 5 frames of 128px, PixelCodec,
+              dim 2048, 4 enc + 8 dec, MSE + GDL + BiPatchNCE, lr 1e-5,
+              bf16 parameters and bf16 Adam moments), ``train_flagship_tuned``
+              (the same at batch 288) and ``train_ref_artifact`` (batch 64, 5
+              frames of 128px, the SD VAE in f32 with seeded weights encoding
+              all 320 frames inside every step, dim 256, 6 enc + 6 dec, MSE +
+              GDL, lr 1e-4, f32): steps/s, clips/s, the first and the last
+              loss (finite; the last below the first for
+              ``train_ref_artifact``), peak memory and the exact launch
+              counts by body are printed and checked; the VAE step's flash
+              launches must take the f32 FMA body. Before the paths, a dry
+              run of the VAE step's encode records its kernel shapes and
+              each is held against its plain version in f32. After them: the
+              ``train_flagship`` state is saved, restored into a fresh
+              ``Trainer``, and one more step on each must give equal losses
+              and parameters bit for bit; ``train_flagship`` is timed once
+              more with ``dropout_p = 0`` (what the dropout costs a step);
+              and a small f32 VAE-codec step on the card (kernels) is held
+              against the CPU (plain)
+  8. profile  only with ``--profile``: one warm batch of four paths under
               torch.profiler, device time bucketed by kernel name; the two
               unprofiled batches of every path, whose walls give the idle
               share, all run before the first trace
-  8. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+  9. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -92,6 +115,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.codecs import PixelCodec
+from sd_video_gen_tpu_torch.config import Config
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
@@ -117,6 +141,8 @@ from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
                                                   groupnorm_silu_reference)
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
+from sd_video_gen_tpu_torch.train.trainer import (Trainer,
+                                                  encode_or_passthrough)
 
 FRAME, CONTEXT, HI_RES, DDIM_STEPS = 64, 5, 512, 50
 FLAGSHIP = dict(dim_model=2048, num_heads=8, num_encoder_layers=4,
@@ -168,6 +194,34 @@ SD_PATHS = [
     dict(name="sd_txt2img_dpmpp20", sampler="dpmpp", steps=20, unet_calls=20),
     dict(name="sd_img2img_ddim", sampler="ddim", steps=DDIM_STEPS,
          start_step=10, unet_calls=40)]
+# The training paths: names and sizes are the JAX bench's (bench.py
+# scenario_train, scenario_train_tuned, scenario_train_ref_artifact). Each
+# takes TRAIN_WARMUP + TRAIN_TIMED + 1 optimizer steps on one fixed batch.
+TRAIN_FRAME, TRAIN_WARMUP, TRAIN_TIMED = 128, 2, 8
+_FLAGSHIP_TRAIN = dict(
+    config_name="11_27_ucf_final", lr=1e-5, frames_per_clip=5,
+    frames_to_predict=5, frame_size=TRAIN_FRAME, dropout_p=0.1, use_mse=True,
+    use_gdl=True, lambda_gdl=1.0, use_contrastive=True,
+    lambda_contrastive=0.025, **FLAGSHIP)
+TRAIN_PATHS = [
+    dict(name="train_flagship", codec="pixel", precision="bf16_full",
+         clip_frames=10, cfg=Config(batch_size=6, **_FLAGSHIP_TRAIN)),
+    dict(name="train_flagship_tuned", codec="pixel", precision="bf16_full",
+         clip_frames=10, cfg=Config(batch_size=288, **_FLAGSHIP_TRAIN)),
+    # the reference's own recorded run: the VAE encode of the pixel batch
+    # inside every step, f32, MSE + GDL
+    dict(name="train_ref_artifact", codec="vae", precision="f32",
+         clip_frames=5, cfg=Config(
+             config_name="config_test", lr=1e-4, batch_size=64,
+             frames_per_clip=5, frames_to_predict=5, frame_size=TRAIN_FRAME,
+             dim_model=256, num_heads=8, num_encoder_layers=6,
+             num_decoder_layers=6, dropout_p=0.1, use_mse=True, use_gdl=True,
+             lambda_gdl=1.0, use_contrastive=False))]
+# A small f32 VAE-codec train step, card (kernels) vs CPU (plain), dropout
+# off: loss components relative, first moments (the gradient) relative L2.
+# Summation order only (TF32 off).
+SMALL_TRAIN_LOSS_RTOL = 1e-4
+SMALL_TRAIN_GRAD_REL_L2 = 1e-3
 TEXT_CLASSES, TEXT_DIM = 101, 384
 # Kernel vs its plain version computed in f32 from the same inputs.
 # flash attention, max abs: f32 FMA order over up to 4096 keys; bf16: p is
@@ -533,7 +587,9 @@ def wrapper_host_cost():
             f"host time per call, {1 / host:.0f} calls/s")
 
 
-def phase_kernel(sigs) -> dict:
+def check_signatures(sigs, dtypes, what: str = "") -> list:
+    """Each kernel at each signature of ``sigs`` in each of ``dtypes``
+    against its plain version, timed; fails on any disagreement."""
     rows, failures = [], []
     for (name, sig), calls in sigs.items():
         if name == "groupnorm_silu" and sig[5] != "nhwc":
@@ -547,7 +603,7 @@ def phase_kernel(sigs) -> dict:
         if name == "groupnorm_silu":
             one_layout = sig[0][1] == 1 or sig[0][2] * sig[0][3] == 1
             bodies = ("nhwc",) if one_layout else ("nhwc", "nchw")
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             for body in bodies:
                 res = (check_attention(sig, dtype) if body is None else
                        check_groupnorm(sig, dtype, body))
@@ -560,7 +616,7 @@ def phase_kernel(sigs) -> dict:
                          if name == "flash_attention" else
                          f" ({row['mode']}), {row['gbps']:.0f} GB/s"
                          if row["mode"] else f", {row['gbps']:.0f} GB/s")
-                log(f"kernel: {name} {tuple(sig[0])} {row['args']} "
+                log(f"kernel: {what}{name} {tuple(sig[0])} {row['args']} "
                     f"{row['dtype']} x{calls}: err {row['max_abs_err']:.2e} "
                     f"{'ok' if row['ok'] else 'FAIL'}, {row['ms']:.4f} ms, "
                     f"plain {row['plain_ms']:.4f} ms, bound "
@@ -575,6 +631,11 @@ def phase_kernel(sigs) -> dict:
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
+    return rows
+
+
+def phase_kernel(sigs) -> dict:
+    rows = check_signatures(sigs, (torch.bfloat16, torch.float32))
     wrapper_host_cost()
     summary = {}
     for name in KERNELS:
@@ -647,15 +708,18 @@ class launch_window:
         self.gn_bodies = dict(gn.ROUTE_LAUNCHES)
         return False
 
-    def check(self, name: str, expected: dict):
+    def check(self, name: str, expected: dict, flash_body: str = "wgmma"):
+        """Exact counts, every GroupNorm launch on the NHWC body and every
+        flash launch on ``flash_body``: the tensor-core body on the bf16
+        serving paths, the f32 FMA body in the f32 training step."""
         log(f"{name}: launches {self.launches}; flash attention by body "
             f"{self.bodies}; GroupNorm by body {self.gn_bodies}")
         if self.gn_bodies.get("nhwc", 0) != self.launches["groupnorm_silu"]:
             raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
                                  f"{self.gn_bodies}")
-        if self.bodies.get("wgmma", 0) != self.launches["flash_attention"]:
+        if self.bodies.get(flash_body, 0) != self.launches["flash_attention"]:
             raise AssertionError(f"{name}: flash attention left the "
-                                 f"tensor-core body: {self.bodies}")
+                                 f"{flash_body} body: {self.bodies}")
         for kernel, want in expected.items():
             if self.launches[kernel] != want:
                 raise AssertionError(
@@ -948,6 +1012,248 @@ def phase_check(models):
                             SMALL_CACHED_FRAME1_REL_L2, INT8_REL_L2)
 
 
+def _train_frames(path, seed=0) -> np.ndarray:
+    cfg = path["cfg"]
+    return np.random.default_rng(seed).integers(
+        0, 256, (cfg.batch_size, path["clip_frames"], cfg.frame_size,
+                 cfg.frame_size, 3), dtype=np.uint8)
+
+
+def _trainer(path, workdir, seed=0) -> Trainer:
+    """The port's Trainer for a training path, on the card, its state
+    initialised from ``seed``; checkpoints and logs under ``workdir``."""
+    trainer = Trainer(path["cfg"], mode="ar", codec_kind=path["codec"],
+                      checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      log_dir=os.path.join(workdir, "logs"), use_wandb=False,
+                      precision=path["precision"], device="cuda")
+    trainer.logger.quiet = True
+    trainer.init_state(seed=seed)
+    return trainer
+
+
+def train_signatures(trainers) -> collections.Counter:
+    """Every (kernel, signature) one step of each training path hands the
+    dispatchers: a dry run of the step's frozen encode with the plain
+    versions (the transformer reaches no kernel)."""
+    t0 = time.perf_counter()
+    merged = collections.Counter()
+    with _kernels.force_reference():
+        for path, trainer in trainers:
+            with _kernels.record_calls() as rec:
+                encode_or_passthrough(trainer.codec, _train_frames(path), True)
+            merged.update(rec.calls)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"train: dry run of the steps' encodes (plain versions) in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{ {k: sum(1 for n, _ in merged if n == k) for k in KERNELS} } "
+        f"distinct signatures")
+    return merged
+
+
+def run_train_path(path, trainer, enc_launches) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED + 1 optimizer steps of one path through
+    ``Trainer.train_loop`` on one fixed batch (the frames cross to the card
+    every step, as they do from a loader); returns the window's launches."""
+    name, cfg = path["name"], path["cfg"]
+    batch = ([0] * cfg.batch_size, _train_frames(path))
+    steps = TRAIN_WARMUP + TRAIN_TIMED + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with launch_window() as window:               # the main path
+        first = trainer.train_loop([batch])       # one step; fetches its loss
+        for _ in range(TRAIN_WARMUP - 1):
+            trainer.train_loop([batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed_m = trainer.train_loop([batch] * TRAIN_TIMED)
+        torch.cuda.synchronize()                  # the one synchronise
+        wall = time.perf_counter() - t0
+        last = trainer.train_loop([batch])
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.state.step != steps:
+        raise AssertionError(f"{name}: {trainer.state.step} steps taken, "
+                             f"expected {steps}")
+    losses = (first["total_train"], timed_m["total_train"],
+              last["total_train"])
+    if not all(np.isfinite(v) for m in (first, timed_m, last)
+               for v in m.values()):
+        raise AssertionError(f"{name}: non-finite loss components: {first} "
+                             f"{timed_m} {last}")
+    for p in trainer.state.params.values():
+        _assert_finite(f"{name} parameters", p)
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    log(f"{name}: batch {cfg.batch_size} x {path['clip_frames']} frames of "
+        f"{cfg.frame_size}px, codec {path['codec']}, precision "
+        f"{path['precision']}, {n_params / 1e6:.1f}M parameters "
+        f"({next(iter(trainer.state.params.values())).dtype}, Adam moments "
+        f"{next(iter(trainer.state.opt_state['mu'].values())).dtype}): "
+        f"{TRAIN_TIMED} timed steps in {wall:.3f} s: "
+        f"{TRAIN_TIMED / wall:.3f} steps/s, "
+        f"{TRAIN_TIMED * cfg.batch_size / wall:.1f} clips/s; host ms a step "
+        f"(enqueue) mean {timed_m['step_ms_mean']:.1f}; loss first "
+        f"{losses[0]:.6f}, mean of the timed steps {losses[1]:.6f}, last "
+        f"{losses[2]:.6f} ({'fell' if losses[2] < losses[0] else 'did not fall'}"
+        f" in {steps} steps); components of the last step "
+        f"{ {k: round(v, 6) for k, v in last.items() if k.endswith('_train')} }"
+        f"; peak device memory {peak / 2 ** 30:.2f} GiB")
+    if path["codec"] == "vae" and not losses[2] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall on a fixed "
+                             f"batch at lr {cfg.lr}: {losses}")
+    vae = path["codec"] == "vae"
+    window.check(name, {k: steps * enc * vae
+                        for k, enc in enc_launches.items()},
+                 flash_body="fma")
+    return window.launches
+
+
+def dropout_cost(path, workdir):
+    """What the generator-driven dropout costs a step: the path's timed
+    steps again with ``dropout_p = 0`` (no draw, no mask), beside the rate
+    with it."""
+    rates = {}
+    for p in (path["cfg"].dropout_p, 0.0):
+        variant = dict(path, cfg=path["cfg"].replace(dropout_p=p))
+        trainer = _trainer(variant, workdir)
+        batch = ([0] * variant["cfg"].batch_size, _train_frames(variant))
+        for _ in range(TRAIN_WARMUP):
+            trainer.train_loop([batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_loop([batch] * TRAIN_TIMED)
+        torch.cuda.synchronize()
+        rates[p] = TRAIN_TIMED / (time.perf_counter() - t0)
+        del trainer
+        torch.cuda.empty_cache()
+    with_p, without = rates[path["cfg"].dropout_p], rates[0.0]
+    log(f"train: {path['name']} dropout_p {path['cfg'].dropout_p}: "
+        f"{with_p:.3f} steps/s; dropout_p 0: {without:.3f} steps/s; the "
+        f"dropout costs {1e3 / with_p - 1e3 / without:.2f} ms of a "
+        f"{1e3 / with_p:.2f} ms step")
+
+
+def check_resume(path, trainer, workdir):
+    """Save the path's train state, restore it into a fresh Trainer built
+    from another seed, take one step on each with the same batch and step
+    number: equal losses, parameters and moments, bit for bit."""
+    t0 = time.perf_counter()
+    saved = trainer.save("interrupt")
+    fresh = _trainer(path, workdir, seed=1)
+    fresh.resume(os.path.basename(saved))
+    if fresh.state.step != trainer.state.step:
+        raise AssertionError("resume: the step number was not restored")
+    batch = ([0] * path["cfg"].batch_size, _train_frames(path, seed=3))
+    a, b = ({k: v for k, v in t.train_loop([batch]).items()
+             if k.endswith("_train")} for t in (trainer, fresh))
+    same = a == b
+    sa, sb = trainer.state.state_dict(), fresh.state.state_dict()
+    same = same and all(torch.equal(v, sb[tree][k])
+                        for tree in ("params", "mu", "nu")
+                        for k, v in sa[tree].items())
+    size = os.path.getsize(os.path.join(saved, "state.pt"))
+    log(f"train: {path['name']} state saved ({size / 2 ** 30:.2f} GiB), "
+        f"restored into a fresh Trainer at step {fresh.state.step}, one step "
+        f"on each: loss {a['total_train']:.6f} vs {b['total_train']:.6f}, "
+        f"losses, parameters and moments "
+        f"{'equal bit for bit' if same else 'DIFFER'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("resume: the restored run left the "
+                             "uninterrupted one")
+
+
+def check_small_train_step():
+    """A small f32 VAE-codec train step (dropout off) on the card with the
+    kernels against the same weights and batch on the CPU with the plain
+    versions: loss components and, through Adam's first moments, the
+    gradient, over 2 steps."""
+    from sd_video_gen_tpu_torch.ops.losses import LossWeights
+    from sd_video_gen_tpu_torch.train.trainer import make_train_step
+    cfg = Config(lr=1e-3, batch_size=2, frames_per_clip=3,
+                 frames_to_predict=2, frame_size=16, dropout_p=0.0)
+    vae_cfg = VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
+                        norm_num_groups=8)
+    ft = FrameTransformerConfig(latent_dim=256, dim_model=64, num_heads=4,
+                                num_encoder_layers=1, num_decoder_layers=2,
+                                dim_feedforward=64, dropout_p=0.0,
+                                frames_to_predict=2)
+    frames = np.random.default_rng(4).integers(0, 256, (2, 3, 16, 16, 3),
+                                               dtype=np.uint8)
+    out = {}
+    # one set of weights: built on the CPU, copied to the card (the two
+    # devices' generators draw other numbers from the same seed)
+    cpu_vae = build(AutoencoderKL, vae_cfg, "cpu", seed=0)
+    cpu_model = build(FrameTransformer, ft, "cpu", seed=1, trainable=True)
+    for dev in ("cpu", "cuda"):
+        vae = copy.deepcopy(cpu_vae).to(dev)
+        model = copy.deepcopy(cpu_model).to(dev)
+        init_fn, step_fn = make_train_step(model, VAECodec(16, vae),
+                                           LossWeights.from_config(cfg), cfg)
+        state = init_fn()
+        before = dict(_kernels.LAUNCHES)
+        comps = [step_fn(state, frames, 0)[1] for _ in range(2)]
+        launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+                    for k in KERNELS}
+        out[dev] = ([{k: v.item() for k, v in c.items()} for c in comps],
+                    torch.cat([m.flatten().cpu()
+                               for m in state.opt_state["mu"].values()]),
+                    launched)
+    if max(out["cpu"][2].values()) != 0 or min(out["cuda"][2].values()) == 0:
+        raise AssertionError(f"small train step launches: {out['cuda'][2]} "
+                             f"on the card, {out['cpu'][2]} on the CPU")
+    loss_rel = max(abs(g[k] - c[k]) / abs(c[k])
+                   for c, g in zip(out["cpu"][0], out["cuda"][0]) for k in c)
+    grad_rel = ((out["cuda"][1] - out["cpu"][1]).norm()
+                / out["cpu"][1].norm()).item()
+    log(f"train: small f32 VAE-codec step, card (kernels {out['cuda'][2]}) "
+        f"vs CPU (plain), 2 steps: loss components max rel {loss_rel:.3e} "
+        f"(bound {SMALL_TRAIN_LOSS_RTOL}), first moments rel L2 "
+        f"{grad_rel:.3e} (bound {SMALL_TRAIN_GRAD_REL_L2})")
+    if not (loss_rel <= SMALL_TRAIN_LOSS_RTOL
+            and grad_rel <= SMALL_TRAIN_GRAD_REL_L2):
+        raise AssertionError("small train step: the card disagrees with "
+                             "the CPU")
+
+
+def phase_train(models) -> dict:
+    """The three training paths; returns their launches in all."""
+    enc_launches = {k: v[0] for k, v in passes_per_model(models).items()}
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="sdvg_train") as workdir:
+        by_name = {p["name"]: p for p in TRAIN_PATHS}
+        # the f32 VAE step first: its kernel shapes, each against its plain
+        # version, before anything is timed
+        ref = by_name["train_ref_artifact"]
+        ref_trainer = _trainer(ref, workdir)
+        rows = check_signatures(train_signatures([(ref, ref_trainer)]),
+                                (torch.float32,), what="train f32: ")
+        # a 128px encode: one attention shape; six GroupNorm shapes with
+        # SiLU and the attention block's norm without
+        have = {k: sum(1 for r in rows if r["kernel"] == k
+                       and r["route"] != "nchw") for k in KERNELS}
+        if (have != {"flash_attention": 1, "groupnorm_silu": 7}
+                or any(r["route"] == "wgmma" for r in rows)):
+            raise AssertionError(f"train: the VAE step's kernel shapes: "
+                                 f"{have}, bodies "
+                                 f"{sorted({r['route'] for r in rows})}")
+        for path in TRAIN_PATHS:
+            trainer = (ref_trainer if path is ref
+                       else _trainer(path, workdir))
+            for k, n in run_train_path(path, trainer, enc_launches).items():
+                total[k] += n
+            if path["name"] == "train_flagship":
+                check_resume(path, trainer, workdir)
+                del trainer
+                dropout_cost(path, workdir)
+                continue
+            del trainer
+            if path is ref:
+                del ref_trainer
+            torch.cuda.empty_cache()
+        check_small_train_step()
+    return total
+
+
 # Device-time buckets of the profile, by kernel name; the first match wins.
 PROFILE_BUCKETS = (
     ("K1 flash attention", ("flash_fwd",)),
@@ -1140,6 +1446,8 @@ def main() -> int:
     for k, n in phase_sd(models).items():
         launches[k] += n
     phase_check(models)
+    for k, n in phase_train(models).items():
+        launches[k] += n
     if args.profile:
         phase_profile(models)
     if args.tune:

@@ -19,6 +19,10 @@ parameters keep the reference's names: ``learned_tgt``, ``query_pos``,
 ``load_jax_params`` checks exhaustiveness both ways: every JAX leaf is used
 exactly once, and every port parameter is assigned with its shape.
 
+``train_state_from_jax`` takes a JAX ``TrainState``'s parameters, Adam
+moments and step through the same map into the port's train state, so that
+one JAX step and one port step can start from the same state.
+
 ``quantized_tree_from_jax`` turns the JAX package's int8 serving trees
 (``quantize_frame_transformer``, ``quantize_rollout_params``) into the port's
 (``ops/quantized.py``), value for value.
@@ -169,6 +173,39 @@ def load_jax_params(module: torch.nn.Module, kind: str, jax_params):
             dtype=want[k].dtype, device=want[k].device)
         for k, v in sd.items()}, strict=True)
     return module
+
+
+def train_state_from_jax(params, opt_state, step) -> dict:
+    """A JAX train state -> the port's (``TrainState.state_dict()`` form:
+    ``{"step", "params", "mu", "nu"}``, CPU tensors under the port's
+    parameter names; ``TrainState.load_state_dict`` takes it).
+
+    ``params`` is the FrameTransformer's flax tree; ``opt_state`` the optax
+    Adam state (a tuple whose first member has ``mu`` and ``nu`` trees shaped
+    like ``params``), leaves as numpy arrays or anything ``np.asarray``
+    takes. The moments go through the same name and layout map as the
+    parameters (transposes, fused ``in_proj`` rows): it only permutes and
+    concatenates, so it commutes with Adam's element-wise arithmetic.
+    bf16 leaves stay bf16."""
+    adam = next((s for s in (opt_state if isinstance(opt_state, (tuple, list))
+                             else (opt_state,))
+                 if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("train_state_from_jax: no Adam state (mu, nu) in "
+                         "opt_state")
+
+    def tensors(tree):
+        out = {}
+        for k, a in bridge_state_dict("transformer", tree).items():
+            if a.dtype.name == "bfloat16":     # numpy has no native bf16
+                out[k] = torch.from_numpy(
+                    np.array(a.astype(np.float32))).to(torch.bfloat16)
+            else:
+                out[k] = torch.from_numpy(np.array(a))
+        return out
+
+    return {"step": int(step), "params": tensors(params),
+            "mu": tensors(adam.mu), "nu": tensors(adam.nu)}
 
 
 def _is_qtensor(node) -> bool:

@@ -16,11 +16,14 @@ def default_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0):
+def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0,
+          trainable: bool = False):
     """``module_cls(cfg)`` initialised from ``seed`` directly on ``device``
     (a full-width UNet is never materialised on the host first), cast to
     ``dtype``, 4-D (convolution) weights in ``torch.channels_last``, in eval
-    mode with gradients off.
+    mode with gradients off; ``trainable=True`` returns it in train mode with
+    gradients on instead (the trainer's transformer: every other module of a
+    training run stays frozen).
 
     ``device`` defaults to the card and the call raises where there is none:
     the CPU has to be asked for. The modules' own initialisers
@@ -34,5 +37,5 @@ def build(module_cls, cfg, device=None, dtype=torch.float32, seed: int = 0):
         with torch.device(device):
             module = module_cls(cfg)
     module = module.to(device=device, dtype=dtype)
-    return module.to(memory_format=torch.channels_last).eval() \
-        .requires_grad_(False)
+    return module.to(memory_format=torch.channels_last).train(trainable) \
+        .requires_grad_(trainable)

@@ -15,8 +15,20 @@ mode flags:
 'diff' (residual prediction) is a strategy of the caller, not a model.
 Semantics of torch ``nn.Transformer`` defaults: post-LN, ReLU,
 dim_feedforward 2048, LayerNorm eps 1e-5, a final LayerNorm after each
-stack; embedding * sqrt(D) plus the sinusoidal table. Inference only (no
-dropout). Parameter names follow the reference's own ``nn.Transformer``
+stack; embedding * sqrt(D) plus the sinusoidal table; dropout
+(``dropout_p``) on the attention weights, after the feed-forward's ReLU, on
+every residual branch and on the embedded inputs, as the JAX model has it.
+Dropout runs only in ``train()`` mode, and draws from the ``torch.Generator``
+handed to the forward, never from the global one: the train step seeds it
+from (seed, step), so a resumed run draws what an uninterrupted one would.
+An ``eval()`` forward has no dropout and needs no generator.
+
+Precisions, as the JAX model's ``dtype`` / ``param_dtype``: the compute dtype
+is ``cfg.compute_dtype``, or the parameters' own where that is ``None``.
+Linear layers compute in it (input, weight and bias cast to it: bf16 compute
+on f32 master parameters is ``compute_dtype=torch.bfloat16`` on an f32
+module); LayerNorms run in the parameters' dtype (f32 statistics inside) and
+the softmax in f32. Parameter names follow the reference's own ``nn.Transformer``
 state_dict (``transformer.encoder.layers.0.self_attn.in_proj_weight``,
 ``...multihead_attn...``, ``linear1``, ``norm1``, ``transformer.decoder.norm``;
 ``learned_tgt``, ``query_pos`` with its LayerNorm ``norm``,
@@ -44,6 +56,7 @@ class FrameTransformerConfig:
     num_heads: int = 8
     num_encoder_layers: int = 4
     num_decoder_layers: int = 8
+    dropout_p: float = 0.1
     dim_feedforward: int = 2048  # torch nn.Transformer default
     max_len: int = 64            # positional table window
     mode: str = "ar"             # ar | future | learned_tgt | text
@@ -53,6 +66,7 @@ class FrameTransformerConfig:
     #   'reference_batch' reproduces the reference's PositionalEncoding bug
     #   (PE(batch index) added to every timestep of that item), as the JAX
     #   package does for converted reference checkpoints.
+    compute_dtype: torch.dtype | None = None   # None: the parameters' dtype
 
     def __post_init__(self):
         if self.mode not in ("ar", "future", "learned_tgt", "text"):
@@ -73,6 +87,46 @@ class FrameTransformerConfig:
             return self.dim_model + self.text_embed_dim
         return self.dim_model
 
+    @classmethod
+    def from_config(cls, cfg, mode: str = "ar",
+                    **kw) -> "FrameTransformerConfig":
+        return cls(
+            latent_dim=cfg.latent_dim,
+            dim_model=cfg.dim_model,
+            num_heads=cfg.num_heads,
+            num_encoder_layers=cfg.num_encoder_layers,
+            num_decoder_layers=cfg.num_decoder_layers,
+            dropout_p=cfg.dropout_p,
+            mode=mode,
+            frames_to_predict=cfg.frames_to_predict,
+            **kw,
+        )
+
+
+class _Ctx:
+    """What one forward hands every layer: the compute dtype and the dropout
+    (rate and generator; ``generator=None`` means none is applied)."""
+
+    def __init__(self, dtype, p: float, generator):
+        self.dtype, self.p, self.generator = dtype, p, generator
+
+    def drop(self, x):
+        """Inverted dropout in x's dtype: zero with probability p, the rest
+        divided by 1 - p."""
+        if self.generator is None:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+    def linear(self, lin: nn.Linear, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+
+
+def _ln(norm: nn.LayerNorm, x):
+    return norm(x.to(norm.weight.dtype))
+
 
 class MultiheadAttention(nn.Module):
     """Fused in-projection (q|k|v rows of ``in_proj_weight``), additive mask."""
@@ -85,14 +139,15 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in, kv_in, mask=None):
+    def forward(self, q_in, kv_in, ctx: _Ctx, mask=None):
         D = q_in.shape[-1]
-        w, b = self.in_proj_weight, self.in_proj_bias
+        dt = ctx.dtype
+        w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         if q_in is kv_in:
-            q, k, v = F.linear(q_in, w, b).chunk(3, dim=-1)
+            q, k, v = F.linear(q_in.to(dt), w, b).chunk(3, dim=-1)
         else:
-            q = F.linear(q_in, w[:D], b[:D])
-            k, v = F.linear(kv_in, w[D:], b[D:]).chunk(2, dim=-1)
+            q = F.linear(q_in.to(dt), w[:D], b[:D])
+            k, v = F.linear(kv_in.to(dt), w[D:], b[D:]).chunk(2, dim=-1)
         B, Tq, _ = q.shape
         H, hd = self.heads, D // self.heads
         q = q.reshape(B, Tq, H, hd)
@@ -102,9 +157,14 @@ class MultiheadAttention(nn.Module):
         logits = logits / math.sqrt(hd)
         if mask is not None:
             logits = logits + mask.float()
-        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        weights = ctx.drop(torch.softmax(logits, dim=-1)).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
-        return self.out_proj(out.reshape(B, Tq, D).to(q.dtype))
+        return ctx.linear(self.out_proj, out.reshape(B, Tq, D))
+
+
+def _ffn(layer, x, ctx: _Ctx):
+    h = ctx.drop(F.relu(ctx.linear(layer.linear1, x)))
+    return ctx.linear(layer.linear2, h)
 
 
 class EncoderLayer(nn.Module):
@@ -117,9 +177,9 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(D, eps=1e-5)
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
 
-    def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, ctx: _Ctx):
+        x = _ln(self.norm1, x + ctx.drop(self.self_attn(x, x, ctx)))
+        return _ln(self.norm2, x + ctx.drop(_ffn(self, x, ctx)))
 
 
 class DecoderLayer(nn.Module):
@@ -134,10 +194,10 @@ class DecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
         self.norm3 = nn.LayerNorm(D, eps=1e-5)
 
-    def forward(self, x, memory, tgt_mask):
-        x = self.norm1(x + self.self_attn(x, x, tgt_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory))
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, memory, tgt_mask, ctx: _Ctx):
+        x = _ln(self.norm1, x + ctx.drop(self.self_attn(x, x, ctx, tgt_mask)))
+        x = _ln(self.norm2, x + ctx.drop(self.multihead_attn(x, memory, ctx)))
+        return _ln(self.norm3, x + ctx.drop(_ffn(self, x, ctx)))
 
 
 class _Stack(nn.Module):
@@ -160,10 +220,12 @@ class _Seq2Seq(nn.Module):
 class FrameTransformer(nn.Module):
     """Seq2seq encoder-decoder over flattened frame latents, batch-first.
 
-    ``model(src, tgt, tgt_mask=None, text_embeds=None)`` ->
+    ``model(src, tgt, tgt_mask=None, text_embeds=None, generator=None)`` ->
     (B, T_tgt, latent_dim) f32. ``text_embeds`` (B, text_embed_dim) is
     required in text mode and ignored otherwise; 'learned_tgt' ignores
-    ``tgt`` and decodes its ``frames_to_predict`` queries.
+    ``tgt`` and decodes its ``frames_to_predict`` queries. In ``train()``
+    mode with ``dropout_p > 0`` the forward needs ``generator`` (on the
+    inputs' device) for its dropout draws; in ``eval()`` mode it is ignored.
     """
 
     def __init__(self, cfg: FrameTransformerConfig):
@@ -184,9 +246,15 @@ class FrameTransformer(nn.Module):
         self.register_buffer("pos_table", sinusoidal_positions(cfg.max_len, D),
                              persistent=False)
 
-    def forward(self, src, tgt, tgt_mask=None, text_embeds=None):
+    def forward(self, src, tgt, tgt_mask=None, text_embeds=None,
+                generator: torch.Generator | None = None):
         cfg = self.cfg
-        dt = self.out.weight.dtype
+        dt = cfg.compute_dtype or self.out.weight.dtype
+        dropping = self.training and cfg.dropout_p > 0
+        if dropping and generator is None:
+            raise ValueError("a train() forward with dropout_p > 0 needs a "
+                             "torch.Generator for its dropout draws")
+        ctx = _Ctx(dt, cfg.dropout_p, generator if dropping else None)
         scale = math.sqrt(cfg.model_width)
         if cfg.mode == "learned_tgt":
             q = self.norm(torch.zeros_like(self.query_pos)) + self.query_pos
@@ -197,13 +265,13 @@ class FrameTransformer(nn.Module):
                     "text mode requires text_embeds (B, text_embed_dim)")
             t = text_embeds.to(dt)[:, None]
             proj = self.project_image_embedding
-            src = torch.cat([proj(src.to(dt)),
+            src = torch.cat([ctx.linear(proj, src),
                              t.expand(-1, src.shape[1], -1)], dim=-1) * scale
-            tgt = torch.cat([proj(tgt.to(dt)),
+            tgt = torch.cat([ctx.linear(proj, tgt),
                              t.expand(-1, tgt.shape[1], -1)], dim=-1) * scale
         else:
-            src = self.embedding(src.to(dt)) * scale
-            tgt = self.embedding(tgt.to(dt)) * scale
+            src = ctx.linear(self.embedding, src) * scale
+            tgt = ctx.linear(self.embedding, tgt) * scale
         pe = self.pos_table.to(dt)
         if cfg.pe_mode == "reference_batch":
             src = src + pe[: src.shape[0]][:, None, :]
@@ -211,13 +279,14 @@ class FrameTransformer(nn.Module):
         else:
             src = src + pe[None, : src.shape[1]]
             tgt = tgt + pe[None, : tgt.shape[1]]
+        src, tgt = ctx.drop(src), ctx.drop(tgt)
 
         memory = src
         for layer in self.transformer.encoder.layers:
-            memory = layer(memory)
-        memory = self.transformer.encoder.norm(memory)
+            memory = layer(memory, ctx)
+        memory = _ln(self.transformer.encoder.norm, memory)
         x = tgt
         for layer in self.transformer.decoder.layers:
-            x = layer(x, memory, tgt_mask)
-        x = self.transformer.decoder.norm(x)
-        return self.out(x).float()
+            x = layer(x, memory, tgt_mask, ctx)
+        x = _ln(self.transformer.decoder.norm, x)
+        return ctx.linear(self.out, x).float()

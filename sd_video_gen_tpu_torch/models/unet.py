@@ -119,8 +119,14 @@ class CrossAttention(nn.Module):
         B, Tq, C = x.shape
         H, hd = self.heads, C // self.heads
 
-        def heads(t):  # (B, T, C) -> (B*H, T, hd)
-            return t.reshape(B, -1, H, hd).transpose(1, 2).reshape(B * H, -1, hd)
+        def heads(t):  # (B, T, C) -> (B*H, T, hd), contiguous
+            # This layer's one layout copy, made here where it can be seen:
+            # ``attention`` copies nothing and its kernel takes contiguous
+            # tensors. At B > 1 the reshape after the transpose copies and
+            # ``contiguous`` is a no-op; at B = 1 the reshape is a view
+            # (heads strided over the token rows) and ``contiguous`` copies.
+            t = t.reshape(B, -1, H, hd).transpose(1, 2).reshape(B * H, -1, hd)
+            return t.contiguous()
 
         o = attention(heads(self.to_q(x)), heads(self.to_k(ctx)),
                       heads(self.to_v(ctx)), scale=hd ** -0.5)

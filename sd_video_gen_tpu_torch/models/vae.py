@@ -79,6 +79,7 @@ class AttnBlock(nn.Module):
         B, C, H, W = x.shape
         h = group_norm(self.group_norm, x, silu=False)
         h = h.flatten(2).transpose(1, 2)       # (B, HW, C): a view of NHWC
+        # three fresh contiguous (B, HW, C) tensors: no copy before attention
         q, k, v = self.query(h), self.key(h), self.value(h)
         h = attention(q, k, v, scale=C ** -0.5)
         # (B, HW, C) contiguous is (B, C, H, W) channels-last: a view back

@@ -32,6 +32,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -87,6 +89,21 @@ def record(name: str, signature: tuple) -> None:
     """Called by each dispatcher for every call its kernel could take."""
     for calls in _RECORDERS:
         calls[(name, signature)] += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would have to pass through kernel ``name``: grad mode
+    is on and one of ``tensors`` requires grad. The launchers write their
+    result through a raw pointer, so it would come back without a ``grad_fn``
+    and cut the graph without a word; neither kernel has a backward (as the
+    TPU kernels have no ``custom_vjp``). Frozen callers run under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and grad mode is on, but the "
+            f"kernel has no backward; call it under torch.no_grad() (a "
+            f"frozen module) or differentiate the plain version")
 
 
 def _nvcc() -> str:

@@ -52,9 +52,12 @@ def reference_attention(q, k, v, scale: float | None = None):
 
 
 def flash_attention(q, k, v, scale: float | None = None):
-    """Launch the CUDA kernel on contiguous (BH, T, d) f32/bf16 CUDA tensors."""
+    """Launch the CUDA kernel on contiguous (BH, T, d) f32/bf16 CUDA tensors.
+    Forward only: raises where autograd would have to pass through it
+    (``_kernels.refuse_grad``)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k, v must be CUDA tensors")
+    _kernels.refuse_grad("flash_attention", q, k, v)
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
@@ -102,5 +105,6 @@ def attention(q, k, v, scale: float | None = None, force: str | None = None):
         return reference_attention(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: no path for device {q.device}")
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           scale)
+    # no layout copy here: the launcher raises on a non-contiguous input,
+    # and a caller that needs a copy makes it where it can be seen
+    return flash_attention(q, k, v, scale)

@@ -135,9 +135,12 @@ def groupnorm_silu(x, weight, bias, num_groups: int, eps: float = 1e-6,
 def _launch(x, weight, bias, num_groups: int, eps: float, silu: bool,
             nhwc_mode: str | None = None):
     """``groupnorm_silu``; ``nhwc_mode`` pins the NHWC body's mode as in
-    ``nhwc_plan``, for the tests and timings of one mode against the other."""
+    ``nhwc_plan``, for the tests and timings of one mode against the other.
+    Forward only: raises where autograd would have to pass through it
+    (``_kernels.refuse_grad``)."""
     if not (x.is_cuda and weight.is_cuda and bias.is_cuda):
         raise ValueError("groupnorm_silu: x, weight, bias must be CUDA tensors")
+    _kernels.refuse_grad("groupnorm_silu", x, weight, bias)
     if not x.device == weight.device == bias.device:
         raise ValueError("groupnorm_silu: x, weight, bias on different devices")
     if x.dtype not in _DTYPE_CODES or not x.dtype == weight.dtype == bias.dtype:

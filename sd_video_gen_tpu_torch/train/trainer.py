@@ -1,0 +1,562 @@
+"""One Trainer with strategy flags (``sd_video_gen_tpu/train/trainer.py``).
+
+Strategy modes (``--train_mode``):
+  - 'ar'     : teacher-forced next-frame AR: src = [SOS + frames],
+               tgt = seq[:-1], target = seq[1:], causal mask, loss on the
+               last ``frames_to_predict`` positions.
+  - 'future' : k-step single-shot: no SOS, y_input = seq[:, :-k],
+               target = seq[:, -k:], no mask.
+  - 'diff'   : residual prediction: the model's output for the last k
+               positions is added to the previous-frame latents before the
+               loss.
+  - 'text'   : class-name conditioning: per-batch class-id -> text-embedding
+               lookup, on the device.
+  - 'learned_tgt': DETR-style learned decoder queries; trains with the
+               'future' split.
+
+The step, as in the JAX package: frames cross host -> device once per step
+as uint8; normalise, latent encode (the codec is frozen and runs under
+``torch.no_grad()``: the gradient is taken with respect to the transformer's
+parameters only), forward, loss in f32, backward and the Adam update
+(``train/optim.py``) all run on the device. Loss components stay on the
+device and are summed there; the loop fetches them once per epoch, so no
+step synchronises the host. The dropout draws of a step come from a
+``torch.Generator`` seeded from (seed, step number): a run resumed from a
+checkpoint draws what an uninterrupted one would.
+
+Precisions (``--precision``): ``f32``; ``bf16`` (bf16 compute on f32 master
+parameters with f32 moments); ``bf16_full`` (bf16 parameters and bf16 Adam
+moments).
+
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+in-training FVD (``--fvd_every``), device meshes and multi-process runs
+(``--mesh``, ``--multihost``), the native frame cache (``--native_cache``),
+UCF-101 (``--dataset ucf*``) and weight files (``--vae_weights``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
+from sd_video_gen_tpu_torch.config import (Config, build_arg_parser,
+                                           load_config, sweep_grid)
+from sd_video_gen_tpu_torch.models import build, default_device
+from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
+from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
+                                                       FrameTransformerConfig)
+from sd_video_gen_tpu_torch.ops.losses import LossWeights, composite_loss
+from sd_video_gen_tpu_torch.ops.masks import causal_mask
+from sd_video_gen_tpu_torch.train import checkpoint as ckpt
+from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
+from sd_video_gen_tpu_torch.train.optim import Adam
+
+PRECISIONS = ("f32", "bf16", "bf16_full")
+
+
+class TrainState:
+    """The transformer's parameters (the module's own tensors), Adam's
+    moments under the parameters' names, and the number of steps taken."""
+
+    def __init__(self, model: torch.nn.Module, opt_state: dict, step: int = 0):
+        self.params = dict(model.named_parameters())
+        self.opt_state = opt_state
+        self.step = step
+
+    def state_dict(self) -> dict:
+        """``{"step", "params", "mu", "nu"}`` over the live tensors (what
+        ``train/checkpoint.py`` saves and restores)."""
+        return {"step": self.step,
+                "params": {k: p.detach() for k, p in self.params.items()},
+                "mu": self.opt_state["mu"], "nu": self.opt_state["nu"]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        live = self.state_dict()
+        for tree in ("params", "mu", "nu"):
+            if set(sd[tree]) != set(live[tree]):
+                raise ValueError(
+                    f"state {tree!r}: names differ from the train state's: "
+                    f"{sorted(set(sd[tree]) ^ set(live[tree]))[:10]}")
+            for k, v in live[tree].items():
+                v.copy_(sd[tree][k])
+        self.step = int(sd["step"])
+
+
+def encode_or_passthrough(codec, batch, use_sos: bool) -> torch.Tensor:
+    """uint8 frames (B, T, H, W, 3) -> latents through the codec; f32
+    (B, T, L) batches (from a ``LatentCacheDataset``) pass through with only
+    the SOS handling. The codec is frozen: it runs without autograd, and its
+    output enters the graph as a constant."""
+    batch = torch.as_tensor(batch)
+    with torch.no_grad():
+        if batch.ndim == 3:  # pre-encoded latents
+            latents = batch.to(codec.device, torch.float32)
+            return add_sos(latents) if use_sos else latents
+        return codec.encode_batch(batch, use_sos=use_sos)
+
+
+def _predictions_and_targets(model, latents, k: int, mode: str,
+                             generator=None, text_embeds=None):
+    """Shared forward logic for train and eval; returns (pred_k, target_k).
+    Dropout follows the model's ``train()`` / ``eval()`` mode."""
+    kwargs = {"generator": generator}
+    if text_embeds is not None:
+        kwargs["text_embeds"] = text_embeds
+    if mode in ("future", "learned_tgt"):
+        # learned_tgt: the model ignores tgt and decodes its own learned
+        # queries into exactly k outputs, so the same split applies
+        y_in = latents[:, :-k]
+        target = latents[:, -k:]
+        pred = model(y_in, y_in, tgt_mask=None, **kwargs)
+        return pred[:, -k:], target
+    # ar / diff / text share the teacher-forced layout.
+    y_in = latents[:, :-1]
+    y_exp = latents[:, 1:]
+    mask = causal_mask(y_in.shape[1], device=latents.device)
+    pred = model(latents, y_in, tgt_mask=mask, **kwargs)
+    pred_k = pred[:, -k:]
+    if mode == "diff":
+        pred_k = pred_k + latents[:, -(k + 1):-1]   # previous-frame latents
+    return pred_k, y_exp[:, -k:]
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for step number ``step`` of a run seeded
+    with ``seed``: a fixed function of the two, so the draws of a step do
+    not depend on how the run reached it."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9
+            + 0x94D049BB133111EB) % (1 << 63)
+
+
+def _device_of(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _to_device(text_embeds, device):
+    if text_embeds is None:
+        return None
+    return torch.as_tensor(text_embeds).to(device)
+
+
+def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
+                    mode: str = "ar", mu_dtype=None):
+    """Build (init_fn, step_fn) over ``model`` (a trainable
+    ``FrameTransformer``) and the frozen ``codec``.
+
+    ``init_fn()`` -> a fresh ``TrainState`` (zero moments, step 0).
+    ``step_fn(state, frames, seed[, text_embeds])`` -> (state, components):
+    one optimizer step in place; the components are 0-d tensors on the
+    device (no synchronisation). ``mu_dtype`` goes to Adam. Loss terms are
+    always computed in f32, whatever the model's compute dtype (GDL's
+    differences and NCE's logits lose real precision in bf16)."""
+    k = cfg.frames_to_predict
+    use_sos = mode not in ("future", "learned_tgt")
+    opt = Adam(cfg.lr, mu_dtype=mu_dtype)
+    device = _device_of(model)
+    generator = torch.Generator(device=device)
+
+    def init_fn() -> TrainState:
+        return TrainState(model, opt.init(dict(model.named_parameters())))
+
+    def step_fn(state: TrainState, frames, seed: int, text_embeds=None):
+        if not model.training:
+            model.train()
+        generator.manual_seed(dropout_seed(seed, state.step))
+        latents = encode_or_passthrough(codec, frames, use_sos)
+        pred_k, target_k = _predictions_and_targets(
+            model, latents, k, mode, generator,
+            _to_device(text_embeds, device))
+        total, comps = composite_loss(pred_k.float(), target_k.float(),
+                                      loss_w)
+        names = list(state.params)
+        grads = torch.autograd.grad(total, [state.params[n] for n in names],
+                                    allow_unused=True)
+        state.step += 1
+        opt.update(state.params, dict(zip(names, grads)), state.opt_state,
+                   state.step)
+        return state, {name: v.detach() for name, v in comps.items()}
+
+    return init_fn, step_fn
+
+
+def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
+                   mode: str = "ar"):
+    """``eval_fn(frames[, text_embeds])`` -> the loss components of the
+    model as it stands, without dropout or autograd; f32 loss math like the
+    train side (bf16 GDL differences or NCE logits would make val_loss, and
+    ``save_best`` with it, noisy)."""
+    k = cfg.frames_to_predict
+    use_sos = mode not in ("future", "learned_tgt")
+    device = _device_of(model)
+
+    @torch.no_grad()
+    def eval_fn(frames, text_embeds=None):
+        if model.training:
+            model.eval()
+        latents = encode_or_passthrough(codec, frames, use_sos)
+        pred_k, target_k = _predictions_and_targets(
+            model, latents, k, mode, None, _to_device(text_embeds, device))
+        return composite_loss(pred_k.float(), target_k.float(), loss_w)[1]
+
+    return eval_fn
+
+
+def _not_ported(flag: str, needs: str):
+    raise NotImplementedError(
+        f"{flag} is not ported to sd_video_gen_tpu_torch yet: it needs "
+        f"{needs}")
+
+
+class Trainer:
+    """Fit a FrameTransformer on a frame dataset; owns state/ckpt/metrics.
+
+    ``device`` defaults to the card and raises where there is none (the CPU
+    has to be asked for: ``device='cpu'`` or ``--device cpu``). ``vae`` is
+    the frozen ``AutoencoderKL`` of ``codec_kind='vae'`` (seeded random
+    weights at SD widths when none is given)."""
+
+    def __init__(self, cfg: Config, args=None, mode: str = "ar",
+                 codec_kind: str = "pixel", model_cfg=None,
+                 checkpoint_dir: str = "./checkpoints", run_name=None,
+                 use_wandb: bool = True, num_classes: int = 101,
+                 vae=None, precision: str | None = None, device=None,
+                 log_dir: str = "logs"):
+        self.cfg = cfg
+        self.args = args
+        self.mode = mode
+        self.precision = (precision if precision is not None
+                          else getattr(args, "precision", "f32") or "f32")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision}")
+        if args is not None and getattr(args, "mesh", None):
+            _not_ported("--mesh", "the port of parallel/")
+        self.device = default_device(
+            device if device is not None else getattr(args, "device", None))
+        self.codec = make_codec(cfg, codec_kind, vae=vae, device=self.device)
+        mc = model_cfg or FrameTransformerConfig.from_config(
+            cfg, mode=mode if mode in ("future", "learned_tgt", "text")
+            else "ar")
+        if self.precision == "bf16":
+            mc = dataclasses.replace(mc, compute_dtype=torch.bfloat16)
+        self.model_cfg = mc
+        self.loss_w = LossWeights.from_config(cfg)
+        self.text_embedder = (
+            ClassNameEmbedder(num_classes, mc.text_embed_dim,
+                              device=self.device) if mode == "text" else None)
+
+        self.checkpoint_dir = checkpoint_dir
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        self.index = ckpt.checkpoint_index(checkpoint_dir, cfg.config_name)
+        self.run_name = run_name or f"{cfg.config_name}_{self.index}"
+        debug = bool(getattr(args, "debug", False)) if args else False
+        self.logger = MetricsLogger(self.run_name, log_dir=log_dir,
+                                    use_wandb=use_wandb and not debug)
+        self.model = None
+        self.state = None
+        self.best_train = float("inf")
+        self.best_val = float("inf")
+
+    # -- state management ---------------------------------------------------
+    def init_state(self, seed: int = 0):
+        """Build the transformer from ``seed`` on the device, trainable, and
+        a fresh train state over it (a torch module needs no sample batch to
+        initialise, so the JAX trainer's sample arguments are gone)."""
+        full = self.precision == "bf16_full"
+        self.model = build(FrameTransformer, self.model_cfg, self.device,
+                           torch.bfloat16 if full else torch.float32, seed,
+                           trainable=True)
+        self._init_fn, self._step_fn = make_train_step(
+            self.model, self.codec, self.loss_w, self.cfg, self.mode,
+            mu_dtype=torch.bfloat16 if full else None)
+        self._eval_fn = make_eval_step(self.model, self.codec, self.loss_w,
+                                       self.cfg, self.mode)
+        self.state = self._init_fn()
+        n = sum(p.numel() for p in self.state.params.values())
+        self.logger.log({"event": "init", "n_params": n})
+        return self.state
+
+    def resume(self, old_name: str):
+        """Continue from the port's checkpoint directory ``old_name`` under
+        ``checkpoint_dir`` (parameters, moments and step, exactly), or from a
+        reference ``.pt`` state dict of the same name: the port's module
+        names are the reference's own, so that is ``load_state_dict`` with
+        fresh moments, like the reference's own resume."""
+        path = os.path.abspath(os.path.join(self.checkpoint_dir, old_name))
+        pt = path if path.endswith(".pt") else path + ".pt"
+        if not os.path.isdir(path) and os.path.isfile(pt):
+            sd = torch.load(pt, map_location="cpu", weights_only=True)
+            sd = sd.get("state_dict", sd)
+            # the positional table is a buffer the port generates, and text
+            # mode's frozen sentence encoder is replaced by the embedding
+            # table: neither is a parameter of this model
+            sd = {k: v for k, v in sd.items()
+                  if "positional_encoder" not in k
+                  and not (self.mode == "text"
+                           and k.startswith("sent_transformer."))}
+            self.model.load_state_dict(sd, strict=True)
+        else:
+            self.state.load_state_dict(
+                ckpt.restore_checkpoint(path, self.state.state_dict()))
+
+    # -- loops --------------------------------------------------------------
+    def _texts(self, indices):
+        if self.text_embedder is None:
+            return None
+        ids = [i[0] if isinstance(i, (list, tuple)) else i for i in indices]
+        # ids come from the host, so the bounds check and the gather start
+        # no device -> host copy
+        return self.text_embedder(np.asarray(ids, np.int64))
+
+    @staticmethod
+    def _means(keys, sums, nb: int, suffix: str) -> dict:
+        """One device -> host fetch for the whole epoch. 'L1' capitalisation
+        matches the reference's metric names."""
+        if sums is None:
+            return {}
+        means = (sums / max(nb, 1)).tolist()
+        return {f"{'L1' if k == 'l1' else k}_{suffix}": v
+                for k, v in zip(keys, means)}
+
+    def train_loop(self, loader, seed: int = 0):
+        from sd_video_gen_tpu_torch.utils.profiling import StepTimer
+        timer = StepTimer()
+        keys, sums, nb = None, None, 0
+        for indices, frames in loader:
+            timer.start()
+            self.state, comps = self._step_fn(self.state, frames, seed,
+                                              self._texts(indices))
+            timer.stop()
+            keys = list(comps)
+            stacked = torch.stack([comps[k] for k in keys])
+            sums = stacked if sums is None else sums + stacked
+            nb += 1
+        out = self._means(keys, sums, nb, "train")
+        out.update(timer.summary())
+        return out
+
+    def validation_loop(self, loader):
+        keys, sums, nb = None, None, 0
+        for indices, frames in loader:
+            comps = self._eval_fn(frames, self._texts(indices))
+            keys = list(comps)
+            stacked = torch.stack([comps[k] for k in keys])
+            sums = stacked if sums is None else sums + stacked
+            nb += 1
+        if sums is None:
+            warnings.warn(
+                "validation epoch yielded no batches (dataset smaller than "
+                "one batch?) — val metrics report 0", stacklevel=2)
+        return self._means(keys, sums, nb, "val")
+
+    def fvd_validation(self, *a, **kw):
+        _not_ported("fvd_validation", "the ports of models/i3d.py and "
+                                       "evaluation/fvd.py")
+
+    def fit(self, train_loader, val_loader, epochs: int, seed: int = 0,
+            save_best: bool = False, fvd_every: int = 0, fvd_i3d=None,
+            ckpt_every: int = 1, fvd_protocol: str = "last_k"):
+        if fvd_every:
+            _not_ported("fvd_every", "the ports of models/i3d.py and "
+                                      "evaluation/fvd.py")
+        if self.state is None:
+            self.init_state(seed=seed)
+        history = []
+        try:
+            for epoch in range(1, epochs + 1):
+                train_m = self.train_loop(train_loader, seed)
+                val_m = self.validation_loop(val_loader)
+                metrics = {"epoch": epoch, **train_m, **val_m,
+                           "train_loss": train_m.get("total_train", 0.0),
+                           # an EMPTY val epoch must not report 0.0: under
+                           # save_best that would pin best_val to 0.0 and
+                           # crown a bogus 'best' forever (NaN never
+                           # compares < best)
+                           "val_loss": val_m.get("total_val", float("nan"))}
+                self.logger.log(metrics, step=self.state.step)
+                history.append(metrics)
+                # --ckpt_every: a full train-state save moves parameters and
+                # Adam state (GBs at flagship scale). The final epoch always
+                # saves. save_best must see EVERY epoch's metrics (it already
+                # rate-limits itself by writing only on improvement): gating
+                # it on ckpt_every would skip the true best epoch and let a
+                # later, worse epoch claim the 'best' checkpoint.
+                if save_best or epoch % max(ckpt_every, 1) == 0 \
+                        or epoch == epochs:
+                    self._save(metrics, save_best)
+            # drain the epoch save in flight before declaring fit done
+            ckpt.finalize_saves()
+        except (KeyboardInterrupt, SystemExit, Exception) as e:
+            # failure/preemption handling: persist an emergency checkpoint
+            # (parameters + moments + step) so --resume continues exactly
+            if self.state is not None:
+                path = self.save("interrupt")
+                self.logger.log({"event": "interrupt",
+                                 "error": type(e).__name__,
+                                 "checkpoint": path})
+            raise
+        return history
+
+    def _save(self, metrics, save_best: bool):
+        # save-best on train and val separately, else save-last. Epoch saves
+        # do not block: the state is copied to host memory and the disk
+        # write overlaps the next epochs; fit() and the interrupt path drain
+        # with ckpt.finalize_saves().
+        if save_best:
+            if metrics["train_loss"] < self.best_train:
+                self.best_train = metrics["train_loss"]
+                self.save("train", block=False)
+            if metrics["val_loss"] < self.best_val:
+                self.best_val = metrics["val_loss"]
+                self.save("test", block=False)
+        else:
+            self.save("test", block=False)
+
+    def save(self, mode_tag: str, block: bool = True):
+        path = ckpt.checkpoint_path(self.checkpoint_dir, self.cfg.config_name,
+                                    self.index, mode_tag)
+        ckpt.save_checkpoint(path, self.state.state_dict(), block=block)
+        return path
+
+
+def build_dataset(cfg: Config, args, stage: str,
+                  exact_frames: int | None = None):
+    """Dataset dispatch. ``exact_frames`` pins the clip length, overriding
+    every mode-based extension (future/learned_tgt add frames_to_predict;
+    Kitti always extends): evaluation callers that compute their own GT
+    horizon pass it so the length policy has exactly one owner."""
+    from sd_video_gen_tpu_torch.data import (BouncingBallDataset,
+                                             KittiDataset,
+                                             MovingMNISTDataset)
+    name = args.dataset
+    # future/learned_tgt train on the split src=clip[:-k], target=clip[-k:]:
+    # clips must carry the k extra frames or the encoder input is EMPTY
+    ext = (cfg.frames_to_predict
+           if getattr(args, "train_mode", "ar") in ("future", "learned_tgt")
+           else 0)
+    if name == "ball":
+        return BouncingBallDataset(num_frames=exact_frames
+                                   or (cfg.frames_per_clip + ext),
+                                   stride=cfg.stride, dir=args.folder,
+                                   stage=stage, seed=args.seed)
+    if name == "kitti":
+        return KittiDataset(
+            num_frames=exact_frames
+            or (cfg.frames_per_clip + cfg.frames_to_predict),
+            stride=1, dir=args.folder, stage=stage,
+            frame_size=cfg.frame_size, seed=args.seed)
+    if name == "mnist":
+        return MovingMNISTDataset(num_frames=exact_frames
+                                  or (cfg.frames_per_clip + ext),
+                                  stride=cfg.stride,
+                                  path=args.folder or "mnist_test_seq.npy",
+                                  stage=stage, seed=args.seed)
+    if "ucf" in name:
+        _not_ported(f"--dataset {name}", "the port of data/ucf101.py")
+    raise ValueError(f"unknown dataset {name}")
+
+
+def build_train_parser():
+    """The shared flags plus the trainer's own (every flag of the JAX CLI)
+    and ``--device``."""
+    parser = build_arg_parser()
+    parser.add_argument("--train_mode", type=str, default="ar",
+                        choices=["ar", "future", "diff", "text",
+                                 "learned_tgt"])
+    parser.add_argument("--codec", type=str, default="pixel",
+                        choices=["pixel", "vae"])
+    parser.add_argument("--sweep", action="store_true",
+                        help="run the full YAML grid instead of the first point")
+    parser.add_argument("--fvd_every", type=int, default=0,
+                        help="compute FVD every N epochs (not ported yet)")
+    parser.add_argument("--i3d_weights", type=str, default=None)
+    parser.add_argument("--fvd_protocol", type=str, default="last_k",
+                        choices=("last_k", "reference"))
+    parser.add_argument("--latent_cache", type=str, default=None,
+                        help="train from a utils/preprocess.py latent cache "
+                             "dir instead of decoding frames")
+    parser.add_argument("--native_cache", type=str, default=None,
+                        help="a data/native_loader.py frame cache dir (not "
+                             "ported yet)")
+    parser.add_argument("--ckpt_every", type=int, default=1,
+                        help="checkpoint every N epochs (final epoch always "
+                             "saves; a flagship train-state save moves GBs). "
+                             "--save_best True ignores this: best-mode "
+                             "writes only on improvement already")
+    parser.add_argument("--precision", type=str, default="f32",
+                        choices=list(PRECISIONS),
+                        help="f32 | bf16 (bf16 compute, f32 master weights) "
+                             "| bf16_full (bf16 weights + bf16 Adam moments)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a multi-process run (not ported yet)")
+    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device; default: the card, and an error "
+                             "where there is none ('cpu' has to be asked "
+                             "for)")
+    return parser
+
+
+def refuse_unported(args) -> None:
+    """Raise for every flag whose feature the port does not have yet, before
+    anything is built: a run never carries on without it."""
+    if args.fvd_every:
+        _not_ported("--fvd_every", "the ports of models/i3d.py and "
+                                    "evaluation/fvd.py")
+    if args.mesh:
+        _not_ported("--mesh", "the port of parallel/")
+    if args.multihost:
+        _not_ported("--multihost", "the port of parallel/")
+    if args.native_cache:
+        _not_ported("--native_cache", "the port of data/native_loader.py")
+    if "ucf" in args.dataset:
+        _not_ported(f"--dataset {args.dataset}",
+                     "the port of data/ucf101.py")
+    if args.vae_weights:
+        _not_ported("--vae_weights", "the port of the weight-file loader "
+                                      "(diffusion/weights.load_state_dict)")
+
+
+def main(argv=None):
+    args = build_train_parser().parse_args(argv)
+    refuse_unported(args)
+
+    from sd_video_gen_tpu_torch.data import BatchLoader
+
+    grid = (sweep_grid(args.config, args.config_dir) if args.sweep
+            else [load_config(args.config, args.config_dir)])
+    for cfg in grid:
+        trainer = Trainer(cfg, args, mode=args.train_mode,
+                          codec_kind=args.codec,
+                          checkpoint_dir=args.checkpoint_dir)
+        if args.latent_cache:
+            from sd_video_gen_tpu_torch.data.latent_cache import (
+                LatentCacheDataset)
+            train_ds = LatentCacheDataset(args.latent_cache, "train")
+            val_ds = LatentCacheDataset(args.latent_cache, "test")
+        else:
+            train_ds = build_dataset(cfg, args, "train")
+            val_ds = build_dataset(cfg, args, "test")
+        train_loader = BatchLoader(train_ds, cfg.batch_size,
+                                   epoch_ratio=cfg.epoch_ratio,
+                                   seed=args.seed)
+        val_loader = BatchLoader(val_ds, cfg.batch_size,
+                                 epoch_ratio=cfg.epoch_ratio, seed=args.seed)
+        if args.resume:
+            trainer.init_state(seed=args.seed)
+            trainer.resume(args.old_name)
+        trainer.fit(train_loader, val_loader, epochs=cfg.epochs,
+                    seed=args.seed, save_best=args.save_best,
+                    ckpt_every=args.ckpt_every)
+        trainer.logger.close()
+
+
+if __name__ == "__main__":
+    main()

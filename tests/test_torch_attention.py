@@ -83,3 +83,31 @@ def test_route_picks_the_body_by_dtype_head_dim_and_alignment(dtype, d, ptrs,
     tensor-core body (TMA needs both); any other d, an unaligned pointer or
     f32 takes the FMA body."""
     assert patt.route(dtype, d, ptrs) == want
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_callers_hand_attention_contiguous_tensors(batch, monkeypatch):
+    """``attention`` copies nothing and its kernel refuses a non-contiguous
+    tensor, so the callers make the copy: the UNet's head split at B = 1 is
+    a strided view until its explicit ``contiguous``; the VAE's q, k, v come
+    out of their projections contiguous."""
+    from sd_video_gen_tpu_torch.models import unet, vae
+    seen = []
+
+    def spy(module):
+        real = module.attention
+        monkeypatch.setattr(module, "attention", lambda q, k, v, **kw: (
+            seen.append((q.is_contiguous(), k.is_contiguous(),
+                         v.is_contiguous())), real(q, k, v, **kw))[1])
+
+    spy(unet)
+    spy(vae)
+    x = torch.randn(batch, 16, 32)
+    unet.CrossAttention(32, heads=4)(x)       # spatial self-attention
+    unet.CrossAttention(32, heads=4, context_dim=16)(
+        x, torch.randn(batch, 5, 16))         # cross-attention
+    block = vae.AttnBlock(
+        vae.VAEConfig(block_out_channels=(32,), norm_num_groups=8), 32)
+    block(torch.randn(batch, 32, 4, 4).contiguous(
+        memory_format=torch.channels_last))
+    assert seen == [(True, True, True)] * 3

@@ -142,6 +142,7 @@ def test_groupnorm_silu_matches_plain(cuda, shape, groups, silu, eps, dtype):
     w = (1 + 0.5 * torch.randn(C, generator=g, device=cuda)).to(dtype)
     b = (0.5 * torch.randn(C, generator=g, device=cuda)).to(dtype)
     norm = nn.GroupNorm(groups, C, eps=eps).to(cuda, dtype)
+    norm.requires_grad_(False)         # frozen, as ``models.build`` makes it
     with torch.no_grad():
         norm.weight.copy_(w)
         norm.bias.copy_(b)
@@ -314,6 +315,7 @@ def test_group_norm_dispatch_follows_the_memory_format(cuda):
     bodies agree to the bf16 rounding on the same values."""
     x, w, b = _gn_inputs((2, 64, 16, 16), torch.bfloat16, cuda)
     norm = nn.GroupNorm(32, 64, eps=1e-6).to(cuda, torch.bfloat16)
+    norm.requires_grad_(False)         # frozen, as ``models.build`` makes it
     with torch.no_grad():
         norm.weight.copy_(w)
         norm.bias.copy_(b)
@@ -350,3 +352,75 @@ def test_groupnorm_silu_rejects_what_it_cannot_take(cuda):
         pgn.groupnorm_silu(x[0], w, w, 4)
     with pytest.raises(ValueError, match="CUDA"):
         pgn.groupnorm_silu(x.cpu(), w.cpu(), w.cpu(), 4)
+
+
+# -- the training path: a frozen f32 VAE encode of 128px frames inside the
+# step, and the launchers' refusal to sit inside an autograd graph ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256, 512), (3, 256, 512)])
+def test_flash_attention_f32_training_shape_takes_the_fma_body(cuda, shape):
+    """The VAE mid-block attention of a 128px encode (T = 16 x 16, d = 512)
+    in f32, at a reduced batch (the step's is 320): the FMA body."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda)
+               for _ in range(3))
+    _check_flash(q, k, v, torch.float32, 1e-4, "fma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu,eps", [(True, 1e-6), (False, 1e-6)])
+@pytest.mark.parametrize("shape", [
+    (16, 128, 128, 128), (16, 128, 64, 64), (16, 256, 64, 64),
+    (16, 256, 32, 32), (16, 512, 32, 32), (16, 512, 16, 16),
+    (320, 512, 16, 16)])
+def test_groupnorm_silu_nhwc_f32_training_shapes(cuda, shape, silu, eps):
+    """Every GroupNorm shape of the VAE encoder at 128px, f32,
+    channels-last, at a reduced batch (the step's is 320; the smallest
+    shape also at 320)."""
+    x, w, b = _gn_inputs(shape, torch.float32, cuda)
+    _check_nhwc(x.contiguous(memory_format=torch.channels_last), w, b, 32,
+                eps, silu)
+
+
+@pytest.mark.cuda
+def test_launchers_refuse_to_sit_inside_an_autograd_graph(cuda):
+    """With grad mode on and an input that requires grad, both launchers and
+    both dispatchers raise instead of returning a result without a
+    ``grad_fn``; under ``no_grad`` they launch and count as ever."""
+    q = torch.randn(2, 64, 40, device=cuda, requires_grad=True)
+    k = torch.randn(2, 64, 40, device=cuda)
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(RuntimeError, match="flash_attention.*no backward"):
+            patt.flash_attention(*args)
+        with pytest.raises(RuntimeError, match="flash_attention"):
+            patt.attention(*args)
+    before = _kernels.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        out = patt.attention(q, k, k)
+    assert not out.requires_grad
+    assert _kernels.LAUNCHES["flash_attention"] == before + 1
+
+    x, w, b = _gn_inputs((2, 64, 8, 8), torch.float32, cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for i in range(3):
+        args = [x, w, b]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="groupnorm_silu.*no backward"):
+            pgn.groupnorm_silu(*args, 32)
+    norm = nn.GroupNorm(32, 64, device=cuda)           # trainable by default
+    with pytest.raises(RuntimeError, match="groupnorm_silu"):
+        pgn.group_norm(norm, x, True)
+    before = _kernels.LAUNCHES["groupnorm_silu"]
+    with torch.no_grad():
+        pgn.group_norm(norm, x, True)
+    pgn.group_norm(norm.requires_grad_(False), x, True)
+    assert _kernels.LAUNCHES["groupnorm_silu"] == before + 2
+
+
+@pytest.mark.cuda
+def test_attention_dispatch_copies_nothing(cuda):
+    """A non-contiguous input is refused by the launcher, not copied."""
+    x = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        patt.attention(x, x, x)

@@ -262,6 +262,10 @@ def test_wire_framing_is_the_jax_packages_byte_for_byte(header, payload):
 
 
 def test_port_imports_no_jax_flax_optax_yaml_cv2():
+    """Importing every module of the port (and ``chip_smoke``) with jax,
+    flax, optax, orbax, yaml, cv2, transformers and the JAX package blocked:
+    none may be imported at import time (yaml and cv2 only inside the
+    functions that need them)."""
     pkg = os.path.join(REPO, "sd_video_gen_tpu_torch")
     mods = sorted(
         ("sd_video_gen_tpu_torch." + os.path.relpath(os.path.join(d, f), pkg)
@@ -269,14 +273,14 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
         for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py"))
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'yaml', 'cv2', 'transformers',\n"
-        "          'sd_video_gen_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'cv2',\n"
+        "          'transformers', 'wandb', 'sd_video_gen_tpu'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    __import__(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'yaml', 'cv2', 'jaxlib',\n"
-        "        'transformers', 'sd_video_gen_tpu')\n"
+        "       ('jax', 'flax', 'optax', 'orbax', 'yaml', 'cv2', 'jaxlib',\n"
+        "        'transformers', 'wandb', 'sd_video_gen_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
@@ -285,7 +289,20 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             "sd_video_gen_tpu_torch.ops.quantized",
             "sd_video_gen_tpu_torch.ops.cached_rollout",
             "sd_video_gen_tpu_torch.models.identity",
-            "sd_video_gen_tpu_torch.models.text_embed"} <= set(mods)
+            "sd_video_gen_tpu_torch.models.text_embed",
+            "sd_video_gen_tpu_torch.config",
+            "sd_video_gen_tpu_torch.ops.losses",
+            "sd_video_gen_tpu_torch.train.optim",
+            "sd_video_gen_tpu_torch.train.trainer",
+            "sd_video_gen_tpu_torch.train.checkpoint",
+            "sd_video_gen_tpu_torch.train.metrics",
+            "sd_video_gen_tpu_torch.data",
+            "sd_video_gen_tpu_torch.data.synthetic",
+            "sd_video_gen_tpu_torch.data.frame_datasets",
+            "sd_video_gen_tpu_torch.data.pipeline",
+            "sd_video_gen_tpu_torch.data.latent_cache",
+            "sd_video_gen_tpu_torch.utils.profiling",
+            "sd_video_gen_tpu_torch.utils.preprocess"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
