@@ -82,11 +82,26 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               more with ``dropout_p = 0`` (what the dropout costs a step);
               and a small f32 VAE-codec step on the card (kernels) is held
               against the CPU (plain)
-  8. profile  only with ``--profile``: one warm batch of four paths under
+  8. eval     the entry points that read files, at full width: the files
+              are made from seeds in a temporary directory (a Moving-MNIST
+              ``.npy``, the config as JSON, the flagship transformer written
+              with the port's checkpoint writer, the SD-v1.4 VAE and UNet
+              from ``tools/synthetic_checkpoint.py`` in fp16, the CLIP text
+              encoder and a seeded I3D as ``.pt``); ``fvd_native_ar4``
+              (``evaluation/predict_fvd.main``: 16 clips in batches of 8, 4
+              predicted frames refined on the native latent grid from DDIM
+              step 48, I3D at 224px in f32, streaming FVD) and
+              ``predict_cli_denoise_ar4`` (``predict/predict.main``: the same
+              clips over the cached rollout, refined at 512px from DDIM step
+              40, ``--timing``): finite FVD and MSE, the warm rates, exact
+              launch counts by body (their shapes join phase 3's dry run);
+              ``Trainer.fvd_validation`` on ``train_flagship``'s Trainer,
+              both protocols; I3D on the card against the CPU
+  9. profile  only with ``--profile``: one warm batch of four paths under
               torch.profiler, device time bucketed by kernel name; the two
               unprofiled batches of every path, whose walls give the idle
               share, all run before the first trace
-  9. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 10. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -100,7 +115,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -108,6 +125,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -120,6 +138,8 @@ from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
 from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
+from sd_video_gen_tpu_torch.evaluation import predict_fvd
+from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
 from sd_video_gen_tpu_torch.models import build
 from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                      CLIPTextEncoder,
@@ -139,9 +159,13 @@ from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
 from sd_video_gen_tpu_torch.ops import groupnorm as gn
 from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
                                                   groupnorm_silu_reference)
+from sd_video_gen_tpu_torch.predict import predict as P
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
-from sd_video_gen_tpu_torch.train.trainer import (Trainer,
+from sd_video_gen_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                     save_checkpoint)
+from sd_video_gen_tpu_torch.train.optim import Adam
+from sd_video_gen_tpu_torch.train.trainer import (Trainer, TrainState,
                                                   encode_or_passthrough)
 
 FRAME, CONTEXT, HI_RES, DDIM_STEPS = 64, 5, 512, 50
@@ -267,6 +291,32 @@ CACHED_FRAME1_REL_L2 = 5e-2
 # through 12 layers; the JAX package's own tests hold int8 to "a few
 # percent" of the float forward at small widths.
 INT8_REL_L2 = 0.15
+# The evaluation paths (phase 8), entry points that read files as a user's
+# run does: ``fvd_native_ar4`` is ``evaluation/predict_fvd.main`` with the
+# native-resolution refiner from DDIM step 48 (the JAX bench's
+# ``vae_denoise_native_ar4`` under the FVD CLI's defaults);
+# ``predict_cli_denoise_ar4`` is ``predict/predict.main`` over the cached
+# rollout, whose refiner runs at 512px from DDIM step 40, as the JAX
+# package's predict CLI does by default. Both: the flagship transformer
+# restored from a checkpoint directory, the SD-v1.4 VAE, UNet and CLIP from
+# weight files, 16 Moving-MNIST-layout clips of 64px in batches of 8, 4
+# predicted frames (5 + 4 = 9, I3D's minimum).
+EVAL_CONFIG, EVAL_CLIPS = "eval_flagship", 16
+EVAL_PATHS = [dict(PATH_DEFAULTS, **p) for p in (
+    dict(name="fvd_native_ar4", codec="vae", batch_clips=8,
+         refine=dict(hi_res=None, start_step=48, sampler="ddim",
+                     solver_steps=None)),
+    dict(name="predict_cli_denoise_ar4", codec="vae", batch_clips=8,
+         rollout="cached",
+         refine=dict(hi_res=HI_RES, start_step=40, sampler="ddim",
+                     solver_steps=None)))]
+# I3D on the card against the CPU, the same weights and one (2, 9, 224,
+# 224, 3) batch, logits relative L2. Both sides f32 with TF32 off, so only
+# summation order differs (and cuDNN's choice of algorithm): the CPU tests
+# hold the port's I3D against the JAX package's within 2e-4 of the logits'
+# largest value.
+I3D_REL_L2 = 1e-4
+I3D_SHAPE = (2, 9, 224, 224, 3)
 # The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -1215,42 +1265,261 @@ def check_small_train_step():
                              "the CPU")
 
 
-def phase_train(models) -> dict:
-    """The three training paths; returns their launches in all."""
+def phase_train(models, workdir) -> tuple:
+    """The three training paths; returns their launches in all and
+    (path, Trainer) of ``train_flagship`` (phase 8 validates it)."""
     enc_launches = {k: v[0] for k, v in passes_per_model(models).items()}
     total = {k: 0 for k in KERNELS}
-    with tempfile.TemporaryDirectory(prefix="sdvg_train") as workdir:
-        by_name = {p["name"]: p for p in TRAIN_PATHS}
-        # the f32 VAE step first: its kernel shapes, each against its plain
-        # version, before anything is timed
-        ref = by_name["train_ref_artifact"]
-        ref_trainer = _trainer(ref, workdir)
-        rows = check_signatures(train_signatures([(ref, ref_trainer)]),
-                                (torch.float32,), what="train f32: ")
-        # a 128px encode: one attention shape; six GroupNorm shapes with
-        # SiLU and the attention block's norm without
-        have = {k: sum(1 for r in rows if r["kernel"] == k
-                       and r["route"] != "nchw") for k in KERNELS}
-        if (have != {"flash_attention": 1, "groupnorm_silu": 7}
-                or any(r["route"] == "wgmma" for r in rows)):
-            raise AssertionError(f"train: the VAE step's kernel shapes: "
-                                 f"{have}, bodies "
-                                 f"{sorted({r['route'] for r in rows})}")
-        for path in TRAIN_PATHS:
-            trainer = (ref_trainer if path is ref
-                       else _trainer(path, workdir))
-            for k, n in run_train_path(path, trainer, enc_launches).items():
-                total[k] += n
-            if path["name"] == "train_flagship":
-                check_resume(path, trainer, workdir)
-                del trainer
-                dropout_cost(path, workdir)
-                continue
-            del trainer
-            if path is ref:
-                del ref_trainer
-            torch.cuda.empty_cache()
-        check_small_train_step()
+    by_name = {p["name"]: p for p in TRAIN_PATHS}
+    # the f32 VAE step first: its kernel shapes, each against its plain
+    # version, before anything is timed
+    ref = by_name["train_ref_artifact"]
+    ref_trainer = _trainer(ref, workdir)
+    rows = check_signatures(train_signatures([(ref, ref_trainer)]),
+                            (torch.float32,), what="train f32: ")
+    # a 128px encode: one attention shape; six GroupNorm shapes with
+    # SiLU and the attention block's norm without
+    have = {k: sum(1 for r in rows if r["kernel"] == k
+                   and r["route"] != "nchw") for k in KERNELS}
+    if (have != {"flash_attention": 1, "groupnorm_silu": 7}
+            or any(r["route"] == "wgmma" for r in rows)):
+        raise AssertionError(f"train: the VAE step's kernel shapes: "
+                             f"{have}, bodies "
+                             f"{sorted({r['route'] for r in rows})}")
+    for path in TRAIN_PATHS:
+        trainer = (ref_trainer if path is ref
+                   else _trainer(path, workdir))
+        for k, n in run_train_path(path, trainer, enc_launches).items():
+            total[k] += n
+        if path["name"] == "train_flagship":
+            check_resume(path, trainer, workdir)
+            flagship = (path, trainer)
+            dropout_cost(path, workdir)
+            continue
+        del trainer
+        if path is ref:
+            del ref_trainer
+        torch.cuda.empty_cache()
+    check_small_train_step()
+    return total, flagship
+
+
+# The full-size SD-v1.4 VAE (diffusers' current names) and UNet weight files
+# of tools/synthetic_checkpoint.py, fp16, written to the directory argv[1].
+_SD_FILES = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, "tools")
+from synthetic_checkpoint import unet_state_dict, vae_state_dict
+for name, make in (("vae", lambda: vae_state_dict("modern", np.float16, 0)),
+                   ("unet", lambda: unet_state_dict(np.float16, 1))):
+    torch.save({k: torch.from_numpy(v) for k, v in make().items()},
+               f"{sys.argv[1]}/{name}.pt")
+"""
+
+
+def start_sd_weight_files(workdir) -> subprocess.Popen:
+    """Write the SD VAE and UNet weight files in a process of their own,
+    started before the first phase: numpy draws their 943M numbers on the
+    host for tens of seconds, while the earlier phases run."""
+    return subprocess.Popen([sys.executable, "-c", _SD_FILES, workdir],
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def eval_files(models, workdir) -> dict:
+    """The files the evaluation paths read, made from seeds: a
+    Moving-MNIST-layout ``.npy`` (``cv2`` is not promised on the card's
+    machine, so no frame tree), the config written as JSON (PyYAML is not
+    promised either), the flagship transformer of phase 3 written with the
+    port's checkpoint writer, the seeded I3D as a ``pytorch_i3d``-layout
+    ``.pt`` and the CLIP text encoder of phase 3 in ``transformers``' layout
+    (``tools/synthetic_checkpoint.py`` builds CLIP through ``transformers``,
+    which the card's machine lacks). The SD VAE and UNet files come from
+    ``start_sd_weight_files``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    # (T, N, 64, 64): a bright square moving across each sequence
+    mnist = np.zeros((CONTEXT + 4, 5 * EVAL_CLIPS, FRAME, FRAME), np.uint8)
+    for n in range(mnist.shape[1]):
+        (y, x), (dy, dx) = rng.integers(4, 36, 2), rng.integers(-3, 4, 2)
+        for t in range(mnist.shape[0]):
+            ty, tx = y + (dy * t) % 20, x + (dx * t) % 20
+            mnist[t, n, ty:ty + 16, tx:tx + 16] = rng.integers(96, 256)
+    files = dict(dir=workdir, mnist=os.path.join(workdir, "mnist.npy"),
+                 checkpoints=os.path.join(workdir, "checkpoints"),
+                 **{k: os.path.join(workdir, f"{k}.pt")
+                    for k in ("vae", "unet", "clip", "i3d")})
+    np.save(files["mnist"], mnist)
+    with open(os.path.join(workdir, EVAL_CONFIG + ".yml"), "w") as f:
+        json.dump({"FRAMES_PER_CLIP": [CONTEXT], "FRAMES_TO_PREDICT": [4],
+                   "FRAME_SIZE": FRAME, "DIM_MODEL": [FLAGSHIP["dim_model"]],
+                   "NUM_HEADS": [FLAGSHIP["num_heads"]],
+                   "NUM_ENCODER_LAYERS": [FLAGSHIP["num_encoder_layers"]],
+                   "NUM_DECODER_LAYERS": [FLAGSHIP["num_decoder_layers"]],
+                   "DROPOUT_P": [0.0]}, f)
+    ft = models["ar"]
+    state = TrainState(ft, Adam(1e-5).init(dict(ft.named_parameters())))
+    save_checkpoint(checkpoint_path(files["checkpoints"], EVAL_CONFIG, 0,
+                                    "test"), state.state_dict())
+    sd = {"text_model." + k: v for k, v in models["clip"].state_dict().items()}
+    sd["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    torch.save(sd, files["clip"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "no I3D weights": seeded here
+        torch.save(load_i3d(None, "cpu").state_dict(), files["i3d"])
+    log(f"eval: files written in {time.perf_counter() - t0:.1f} s: "
+        f"{mnist.shape} Moving-MNIST .npy, the flagship checkpoint "
+        f"({sum(p.numel() for p in ft.parameters()) / 1e6:.1f}M parameters, "
+        f"{ft.out.weight.dtype}), CLIP and I3D .pt")
+    return files
+
+
+def eval_argv(files, path, clips=EVAL_CLIPS, weights=True) -> list:
+    """The command line of an evaluation path; ``weights=False`` leaves the
+    SD modules seeded (the dry run: the same shapes)."""
+    argv = ["--dataset", "mnist", "--folder", files["mnist"], "--config",
+            EVAL_CONFIG, "--config_dir", files["dir"], "--checkpoint_dir",
+            files["checkpoints"], "--codec", "vae", "--denoise", "True",
+            "--pred_frames", str(path["pred"]), "--batch_clips",
+            str(path["batch_clips"]), "--max_clips", str(clips), "--timing"]
+    if weights:
+        for k in ("vae", "unet", "clip"):
+            argv += [f"--{k}_weights", files[k]]
+    if path["name"] == "fvd_native_ar4":
+        return argv + ["--i3d_weights", files["i3d"], "--fvd_api",
+                       "streaming"]
+    return argv + ["--rollout", path["rollout"]]
+
+
+def run_cli(path, argv):
+    """The path's entry point in this process: (its return value, the lines
+    it printed)."""
+    main = predict_fvd.main if path["name"] == "fvd_native_ar4" else P.main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().splitlines()
+
+
+def eval_signatures(files) -> dict:
+    """Every (kernel, signature) one batch of each evaluation path hands the
+    dispatchers: a dry run with the plain versions, by path name."""
+    by_path = {}
+    with _kernels.force_reference():
+        for path in EVAL_PATHS:
+            with _kernels.record_calls() as rec:
+                run_cli(path, eval_argv(files, path, path["batch_clips"],
+                                        weights=False))
+            by_path[path["name"]] = rec.calls
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    merged = merge_signatures(by_path.values())
+    log(f"kernel: dry run of the {len(by_path)} evaluation paths (plain "
+        f"versions, one batch each): "
+        f"{ {k: sum(1 for n, _ in merged if n == k) for k in KERNELS} } "
+        f"distinct signatures")
+    return by_path
+
+
+def run_eval_path(models, files, path) -> dict:
+    """One evaluation path at full width: finite results, exact launches by
+    body, its rates from its own ``--timing`` line."""
+    name, batches = path["name"], EVAL_CLIPS // path["batch_clips"]
+    t0 = time.perf_counter()
+    with launch_window() as window:               # the main path
+        out, lines = run_cli(path, eval_argv(files, path))
+    wall = time.perf_counter() - t0
+    for line in lines[:-1]:
+        log(f"{name}: | {line}")
+    timing = json.loads(lines[-1])
+    if name == "fvd_native_ar4":
+        fvd, mse = out
+        if not (np.isfinite(fvd) and np.isfinite(mse)):
+            raise AssertionError(f"{name}: FVD {fvd}, MSE {mse}")
+        walls = timing["batches"]
+        if [w["clips"] for w in walls] != [path["batch_clips"]] * batches:
+            raise AssertionError(f"{name}: batches {walls}")
+        warm = walls[1]
+        log(f"{name}: FVD {fvd:.6f}, pred MSE {mse:.6f} over {EVAL_CLIPS} "
+            f"clips; warm batch (the second): {warm['clips']} clips in "
+            f"{warm['gen_s'] + warm['i3d_s']:.4f} s = "
+            f"{warm['clips'] / (warm['gen_s'] + warm['i3d_s']):.3f} clips/s "
+            f"(rollout, refine and decode {warm['gen_s'] * 1e3:.1f} ms; I3D "
+            f"of {warm['clips']} real + {warm['clips']} generated clips at "
+            f"224px in f32 {warm['i3d_s'] * 1e3:.1f} ms); first batch "
+            f"{walls[0]['gen_s'] + walls[0]['i3d_s']:.3f} s; the call "
+            f"{wall:.1f} s (building and loading included)")
+    else:
+        if f"predicted {path['pred']} frames for {EVAL_CLIPS} clips" \
+                not in lines:
+            raise AssertionError(f"{name}: {lines}")
+        if (timing["clips"], timing["batches"]) != (EVAL_CLIPS, batches):
+            raise AssertionError(f"{name}: timing {timing}")
+        warm = ((EVAL_CLIPS - path["batch_clips"]) * path["pred"]
+                / (timing["total_s"] - timing["first_sync_s"]))
+        log(f"{name}: timing {json.dumps(timing)}; warm predicted frames/s "
+            f"after the first batch: {warm:.3f}; the call {wall:.1f} s "
+            f"(building and loading included)")
+    window.check(name, expected_launches(models, path, batches))
+    return window.launches
+
+
+def check_trainer_fvd(path, trainer, i3d):
+    """``Trainer.fvd_validation`` of a training path, both protocols, over
+    two seeded batches: finite FVD, wall time."""
+    loader = [([0] * path["cfg"].batch_size, _train_frames(path, seed=s))
+              for s in (5, 6)]
+    for protocol in ("last_k", "reference"):
+        torch.cuda.synchronize()
+        with launch_window() as window:
+            t0 = time.perf_counter()
+            fvd = trainer.fvd_validation(loader, i3d, max_batches=2,
+                                         protocol=protocol)
+            ms = (time.perf_counter() - t0) * 1e3
+        log(f"{path['name']}_fvd: fvd_validation protocol {protocol}, 2 "
+            f"batches of {path['cfg'].batch_size} clips x "
+            f"{path['clip_frames']} frames of {path['cfg'].frame_size}px: FVD "
+            f"{fvd:.6f}, {ms:.1f} ms")
+        if not np.isfinite(fvd):
+            raise AssertionError(f"fvd_validation {protocol}: FVD {fvd}")
+        window.check(f"{path['name']}_fvd", {k: 0 for k in KERNELS})
+
+
+def check_i3d(i3d_path):
+    """I3D on the card against the CPU: the same weights and batch."""
+    x = np.random.default_rng(12).uniform(-1, 1, I3D_SHAPE).astype(np.float32)
+    x = torch.from_numpy(x).permute(0, 4, 1, 2, 3).contiguous()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with torch.inference_mode():
+            out[dev] = load_i3d(i3d_path, dev)(x.to(dev)).cpu()
+    _assert_finite("I3D logits", out["cuda"])
+    rel = ((out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()).item()
+    log(f"eval: I3D {I3D_SHAPE} f32 logits, card vs CPU: rel L2 {rel:.3e} "
+        f"(bound {I3D_REL_L2})")
+    if not rel <= I3D_REL_L2:
+        raise AssertionError("I3D: the card disagrees with the CPU")
+
+
+def phase_eval(models, files, sd_files, flagship) -> dict:
+    """The two evaluation paths, ``fvd_validation`` on the ``train_flagship``
+    Trainer and I3D card vs CPU; returns the paths' launches."""
+    t0 = time.perf_counter()
+    if sd_files.wait(timeout=600) != 0:
+        raise RuntimeError(f"the SD weight files were not written: exit "
+                           f"{sd_files.returncode}")
+    log(f"eval: SD weight files ready after {time.perf_counter() - t0:.1f} s "
+        f"more: " + ", ".join(f"{k}.pt {os.path.getsize(files[k]) / 2 ** 30:.2f}"
+                              f" GiB" for k in ("vae", "unet")))
+    total = {k: 0 for k in KERNELS}
+    for path in EVAL_PATHS:
+        for k, n in run_eval_path(models, files, path).items():
+            total[k] += n
+        torch.cuda.empty_cache()
+    check_trainer_fvd(*flagship, load_i3d(files["i3d"], "cuda"))
+    check_i3d(files["i3d"])
+    log(f"eval: {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -1435,23 +1704,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device()
-    phase_build()
-    models = mode_models(full_width_models(), FLAGSHIP)
-    sigs = path_signatures(models)
-    summary = phase_kernel(merge_signatures(sigs.values()))
-    launches = {k: 0 for k in KERNELS}
-    for path in PATHS:
-        for k, n in phase_serve(models, path).items():
-            launches[k] += n
-    for k, n in phase_sd(models).items():
-        launches[k] += n
-    phase_check(models)
-    for k, n in phase_train(models).items():
-        launches[k] += n
-    if args.profile:
-        phase_profile(models)
-    if args.tune:
-        phase_tune(merge_signatures(sigs[name] for name in REFINER_PATHS))
+    with tempfile.TemporaryDirectory(prefix="sdvg") as workdir:
+        eval_dir = os.path.join(workdir, "eval")
+        os.makedirs(eval_dir)
+        sd_files = start_sd_weight_files(eval_dir)
+        try:
+            phase_build()
+            models = mode_models(full_width_models(), FLAGSHIP)
+            files = eval_files(models, eval_dir)
+            sigs = path_signatures(models)
+            sigs.update(eval_signatures(files))
+            summary = phase_kernel(merge_signatures(sigs.values()))
+            launches = {k: 0 for k in KERNELS}
+            for path in PATHS:
+                for k, n in phase_serve(models, path).items():
+                    launches[k] += n
+            for k, n in phase_sd(models).items():
+                launches[k] += n
+            phase_check(models)
+            train_launches, flagship = phase_train(models, workdir)
+            eval_launches = phase_eval(models, files, sd_files, flagship)
+            for k in KERNELS:
+                launches[k] += train_launches[k] + eval_launches[k]
+            del flagship
+            if args.profile:
+                phase_profile(models)
+            if args.tune:
+                phase_tune(merge_signatures(sigs[name]
+                                            for name in REFINER_PATHS))
+        finally:
+            if sd_files.poll() is None:
+                sd_files.kill()
+                sd_files.wait()
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import json
 import os
 import warnings
 from typing import Any, Sequence
@@ -143,10 +144,18 @@ def load_raw_config(config_name: str, config_dir: str | None = None) -> dict:
     warn loudly: silently ignoring them means e.g. a lowercase ``dim_model:``
     falls back to the 2048-wide flagship default and the user trains a 437M
     model without asking for it.
+
+    Where PyYAML is not installed, the file is read as JSON, YAML's flow
+    subset (``chip_smoke.py`` writes its config so).
     """
-    import yaml
     with open(_find_config_path(config_name, config_dir)) as f:
-        data = yaml.safe_load(f)
+        text = f.read()
+    try:
+        import yaml
+    except ModuleNotFoundError:
+        data = json.loads(text)
+    else:
+        data = yaml.safe_load(text)
     data = data or {}  # empty / comment-only file parses to None
     unknown = [k for k in data if k not in _YAML_KEYS]
     if unknown:
@@ -255,6 +264,24 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", type=str, default=None,
                    help="device mesh spec, e.g. 'data=8' or 'data=4,model=2'")
+    return p
+
+
+MULTI_DEVICE = "the port of parallel/ (ROADMAP queue 1, multi-device)"
+
+
+def not_ported(flag: str, needs: str):
+    """Raise for a flag whose feature the port does not have yet, naming
+    what it needs."""
+    raise NotImplementedError(
+        f"{flag} is not ported to sd_video_gen_tpu_torch yet: it needs "
+        f"{needs}")
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default: the card, and an error "
+                        "where there is none ('cpu' has to be asked for)")
     return p
 
 

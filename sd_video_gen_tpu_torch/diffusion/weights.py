@@ -25,7 +25,22 @@ one JAX step and one port step can start from the same state.
 
 ``quantized_tree_from_jax`` turns the JAX package's int8 serving trees
 (``quantize_frame_transformer``, ``quantize_rollout_params``) into the port's
-(``ops/quantized.py``), value for value.
+(``ops/quantized.py``), value for value. ``i3d_state_dict`` turns the JAX
+I3D's tree into the ``pytorch_i3d`` layout ``models/i3d.py`` loads.
+
+Weight files (``load_state_dict``, ``convert_exhaustive``, ``load_weights``):
+a ``.safetensors`` or ``.pt`` file of diffusers / transformers / reference
+keys loads into the port's ``AutoencoderKL``, ``UNet2DCondition``,
+``CLIPTextEncoder`` and ``FrameTransformer``, exhaustively both ways: a file
+key that is never read, a parameter left unfilled and a shape that differs
+each raise. The port's names are the files' own, except where the layouts
+differ: the VAE's attention keys of both diffusers vintages
+(``query/key/value/proj_attn`` and ``to_q/to_k/to_v/to_out.0``; CompVis-era
+1x1 convolutions there are squeezed to Linear weights), the
+``text_model.`` prefix of a CLIP text encoder, and the positional buffer of
+a reference FrameTransformer ``.pt`` (and the frozen sentence encoder of its
+text mode), which the port does not keep. ``position_ids`` and
+``num_batches_tracked`` are ignored.
 """
 
 from __future__ import annotations
@@ -275,3 +290,134 @@ def quantized_tree_from_jax(jax_tree: dict, device="cpu",
             "dec_norm": norm(tree["dec_norm"]),
             "enc": [layer(l, False) for l in tree["enc"]],
             "dec": [layer(l, True) for l in tree["dec"]]}
+
+
+def i3d_state_dict(jax_params) -> dict[str, np.ndarray]:
+    """The JAX package's I3D param tree -> the ``pytorch_i3d`` state dict
+    (``models/i3d.py`` names): conv kernels (kd, kh, kw, I, O) -> (O, I, kd,
+    kh, kw), ``bn_scale/bn_bias/bn_mean/bn_var`` -> ``bn.weight/bias/
+    running_mean/running_var``."""
+    tree = jax_params.get("params", jax_params)
+    out = {}
+    bn = (("bn_scale", "weight"), ("bn_bias", "bias"),
+          ("bn_mean", "running_mean"), ("bn_var", "running_var"))
+
+    def unit(prefix, p):
+        out[prefix + ".conv3d.weight"] = np.asarray(
+            p["conv3d"]["kernel"]).transpose(4, 3, 0, 1, 2)
+        if "bias" in p["conv3d"]:
+            out[prefix + ".conv3d.bias"] = np.asarray(p["conv3d"]["bias"])
+        for jname, tname in bn:
+            if jname in p:
+                out[f"{prefix}.bn.{tname}"] = np.asarray(p[jname])
+
+    for name, p in tree.items():
+        if name.startswith("Mixed_"):
+            for branch, q in p.items():
+                unit(f"{name}.{branch}", q)
+        else:
+            unit(name, p)
+    return out
+
+
+# -- weight files -------------------------------------------------------------
+
+# checkpoint entries that are buffers or bookkeeping, not parameters
+_IGNORED_KEY_PARTS = ("position_ids", "num_batches_tracked")
+_VAE_ATTN = re.compile(r"^((?:encoder|decoder)\.mid_block\.attentions\.\d+)\."
+                       r"(to_q|to_k|to_v|to_out\.0|q|k|v|proj_out|norm)\."
+                       r"(weight|bias)$")
+_VAE_ATTN_NAMES = {"to_q": "query", "q": "query", "to_k": "key", "k": "key",
+                   "to_v": "value", "v": "value", "to_out.0": "proj_attn",
+                   "proj_out": "proj_attn", "norm": "group_norm"}
+KINDS = ("vae", "unet", "clip", "transformer")
+
+
+def load_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A checkpoint file -> {name: CPU tensor} in the file's dtypes:
+    ``.safetensors``, or a ``torch.save`` file (``.pt`` / ``.bin``), bare or
+    under a ``"state_dict"`` key."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        return load_file(path, device="cpu")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
+def _file_key(kind: str, key: str, text_mode: bool):
+    """A file key -> the port's name, or None for an entry the port does
+    not keep."""
+    if any(part in key for part in _IGNORED_KEY_PARTS):
+        return None
+    if kind == "vae":
+        m = _VAE_ATTN.match(key)
+        if m:
+            return f"{m[1]}.{_VAE_ATTN_NAMES[m[2]]}.{m[3]}"
+    elif kind == "clip":
+        return key.removeprefix("text_model.")
+    elif kind == "transformer":
+        # the positional table is a buffer the port generates; text mode's
+        # frozen sentence encoder is replaced by the embedding table
+        if "positional_encoder" in key or (
+                text_mode and key.startswith("sent_transformer.")):
+            return None
+    return key
+
+
+def convert_exhaustive(kind: str, sd: dict, module: torch.nn.Module) -> dict:
+    """A weight file's state dict -> ``module``'s, proved exhaustive both
+    ways: every file key is read (ignored bookkeeping aside), every
+    parameter is filled, every shape agrees; otherwise ``ValueError``
+    listing what differs. 1x1 convolution weights are squeezed where the
+    module holds a Linear. Values keep the file's dtype."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown model kind {kind!r}")
+    want = module.state_dict()
+    text_mode = getattr(getattr(module, "cfg", None), "mode", None) == "text"
+    out: dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        name = _file_key(kind, key, text_mode)
+        if name is None:
+            continue
+        if name in out:
+            raise ValueError(f"convert_{kind}: two file keys map to {name}")
+        v = torch.as_tensor(v)
+        if (v.ndim == 4 and name in want and want[name].ndim == 2
+                and tuple(v.shape[2:]) == (1, 1)):
+            v = v[:, :, 0, 0]
+        out[name] = v
+    unread = sorted(set(out) - set(want))
+    missing = sorted(set(want) - set(out))
+    bad = sorted(k for k in set(out) & set(want)
+                 if tuple(out[k].shape) != tuple(want[k].shape))
+    if unread or missing or bad:
+        raise ValueError(
+            f"convert_{kind}: {len(unread)} file keys never consumed "
+            f"(first 20) {unread[:20]}; {len(missing)} parameters missing "
+            f"from the file (first 20) {missing[:20]}; shape mismatches "
+            + "; ".join(f"{k}: file {tuple(out[k].shape)} vs model "
+                        f"{tuple(want[k].shape)}" for k in bad[:10]))
+    return out
+
+
+def load_weights(module: torch.nn.Module, kind: str, source):
+    """Fill ``module`` from a weight file (a path, or a state dict already
+    loaded) through ``convert_exhaustive``; values are cast to each
+    parameter's dtype and device, memory formats kept."""
+    sd = load_state_dict(source) if isinstance(source, str) else source
+    with torch.no_grad():
+        module.load_state_dict(convert_exhaustive(kind, sd, module),
+                               strict=True)
+    return module
+
+
+def build_from_file(module_cls, cfg, kind: str, path, device=None,
+                    dtype=torch.float32, seed: int = 0):
+    """``models.build(module_cls, cfg, device, dtype, seed)`` filled from
+    the weight file at ``path`` through ``load_weights``; with ``path=None``
+    the seeded random weights stay."""
+    from sd_video_gen_tpu_torch.models import build
+    module = build(module_cls, cfg, device, dtype, seed)
+    return load_weights(module, kind, path) if path else module

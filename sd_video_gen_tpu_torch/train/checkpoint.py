@@ -188,7 +188,10 @@ def restore_checkpoint(path: str, like: dict) -> dict:
     path = os.path.abspath(path)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint directory at {path}")
-    saved = _load(path)
+    return _restore(path, _load(path), like)
+
+
+def _restore(path: str, saved: dict, like: dict) -> dict:
     if read_format_version(path) >= FORMAT_VERSION:
         return _into(saved, like)
     # unstamped: try the current structure first, then the v1 migration.
@@ -202,6 +205,30 @@ def restore_checkpoint(path: str, like: dict) -> dict:
             return _restore_v1(path, saved, like)
         except Exception:
             raise current_err
+
+
+def restore_params(path: str, model: torch.nn.Module) -> dict:
+    """Only the parameters of the state saved at ``path`` (what the predict
+    CLIs need), checked by name and shape against ``model``'s and migrated
+    like ``restore_checkpoint``; the tensors keep the saved dtypes, on the
+    CPU. The file is read once."""
+    finalize_saves()
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint directory at {path}")
+    saved = _load(path)
+    names = dict(model.named_parameters())
+
+    def like(tree):
+        # zero-stride stand-ins: the saved dtype, the model's shape, no
+        # memory
+        have = saved.get(tree, {}) if isinstance(saved, dict) else {}
+        return {k: torch.empty((), dtype=have[k].dtype if k in have
+                               else p.dtype).expand(p.shape)
+                for k, p in names.items()}
+
+    return _restore(path, saved, {"step": 0, **{tree: like(tree)
+                                                for tree in _TREES}})["params"]
 
 
 # -- v1 -> v2 migration ------------------------------------------------------

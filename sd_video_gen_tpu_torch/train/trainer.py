@@ -28,10 +28,15 @@ Precisions (``--precision``): ``f32``; ``bf16`` (bf16 compute on f32 master
 parameters with f32 moments); ``bf16_full`` (bf16 parameters and bf16 Adam
 moments).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-in-training FVD (``--fvd_every``), device meshes and multi-process runs
-(``--mesh``, ``--multihost``), the native frame cache (``--native_cache``),
-UCF-101 (``--dataset ucf*``) and weight files (``--vae_weights``).
+In-training FVD (``--fvd_every``, ``Trainer.fvd_validation``): every few
+epochs teacher-forced predictions are decoded to pixels and streamed with
+the ground truth through I3D (``evaluation/fvd.py``), per-batch sums on the
+device, the merge on the host in f64. ``--vae_weights`` loads the VAE codec
+from a weight file (``diffusion/weights.py``).
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: device
+meshes and multi-process runs (``--mesh``, ``--multihost``), the native
+frame cache (``--native_cache``) and UCF-101 (``--dataset ucf*``).
 """
 
 from __future__ import annotations
@@ -44,8 +49,10 @@ import numpy as np
 import torch
 
 from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
-from sd_video_gen_tpu_torch.config import (Config, build_arg_parser,
-                                           load_config, sweep_grid)
+from sd_video_gen_tpu_torch.config import (MULTI_DEVICE, Config,
+                                           add_device_flag, build_arg_parser,
+                                           load_config, not_ported,
+                                           sweep_grid)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -207,12 +214,6 @@ def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
     return eval_fn
 
 
-def _not_ported(flag: str, needs: str):
-    raise NotImplementedError(
-        f"{flag} is not ported to sd_video_gen_tpu_torch yet: it needs "
-        f"{needs}")
-
-
 class Trainer:
     """Fit a FrameTransformer on a frame dataset; owns state/ckpt/metrics.
 
@@ -235,7 +236,7 @@ class Trainer:
         if self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision}")
         if args is not None and getattr(args, "mesh", None):
-            _not_ported("--mesh", "the port of parallel/")
+            not_ported("--mesh", MULTI_DEVICE)
         self.device = default_device(
             device if device is not None else getattr(args, "device", None))
         self.codec = make_codec(cfg, codec_kind, vae=vae, device=self.device)
@@ -354,16 +355,86 @@ class Trainer:
                 "one batch?) — val metrics report 0", stacklevel=2)
         return self._means(keys, sums, nb, "val")
 
-    def fvd_validation(self, *a, **kw):
-        _not_ported("fvd_validation", "the ports of models/i3d.py and "
-                                       "evaluation/fvd.py")
+    @torch.no_grad()
+    def fvd_validation(self, loader, i3d, max_batches: int = 8,
+                       protocol: str = "last_k") -> float:
+        """In-training FVD on teacher-forced predictions (no dropout).
+
+        ``i3d`` is the I3D module (``evaluation/predict_fvd.load_i3d``).
+        ``protocol`` picks the frames that enter the statistics:
+          - ``last_k``: the k predicted frames against the last k frames of
+            the ground truth;
+          - ``reference``: the reference's full-clip streaming, the
+            teacher-forced prediction at every position (the SOS token
+            anchors position 0) against the whole clip.
+        ``future`` / ``learned_tgt`` emit exactly k frames, so ``reference``
+        falls back to ``last_k`` there with a warning. Clips shorter than
+        I3D's 9 frames are tiled in time, identically on both sides."""
+        from sd_video_gen_tpu_torch.evaluation.fvd import (
+            FeatureStats, compute_fvd, preprocess_videos)
+        k = self.cfg.frames_to_predict
+        if protocol not in ("last_k", "reference"):
+            raise ValueError(f"unknown fvd protocol {protocol!r}")
+        if protocol == "reference" and self.mode in ("future", "learned_tgt"):
+            warnings.warn(
+                f"fvd protocol 'reference' undefined for mode={self.mode} "
+                "(single-shot models emit exactly k frames); using last_k",
+                stacklevel=2)
+            protocol = "last_k"
+
+        def pad_time(v, min_t: int = 9):
+            if v.shape[1] >= min_t:
+                return v
+            reps = -(-min_t // v.shape[1])
+            return v.repeat(1, reps, 1, 1, 1)[:, :min_t]
+
+        def features(v):
+            return FeatureStats.of_batch(i3d(preprocess_videos(pad_time(v))))
+
+        model = self.model
+        was_training = model.training
+        model.eval()
+        st_real, st_gen = FeatureStats(400), FeatureStats(400)
+        try:
+            for bi, (indices, frames) in enumerate(loader):
+                if bi >= max_batches:
+                    break
+                if np.ndim(frames) == 3:
+                    raise ValueError(
+                        "in-training FVD needs PIXEL frames (I3D consumes "
+                        "video), but the loader yields pre-encoded latents "
+                        "— --latent_cache cannot be combined with "
+                        "--fvd_every")
+                frames = torch.as_tensor(np.asarray(frames)).to(self.device)
+                te = self._texts(indices)
+                latents = encode_or_passthrough(
+                    self.codec, frames,
+                    self.mode not in ("future", "learned_tgt"))
+                if protocol == "reference":
+                    y_in = latents[:, :-1]
+                    kw = {} if te is None else {"text_embeds": te}
+                    pred = model(latents, y_in, tgt_mask=causal_mask(
+                        y_in.shape[1], device=latents.device), **kw)
+                    if self.mode == "diff":
+                        pred = pred + y_in    # the residual at every step
+                    real = frames
+                else:
+                    pred, _ = _predictions_and_targets(model, latents, k,
+                                                       self.mode, None, te)
+                    real = frames[:, -k:]
+                B, T = pred.shape[:2]
+                dec = self.codec.decode_latents(
+                    pred.float().reshape(B * T, self.codec.latent_dim))
+                st_gen = st_gen.merge(features(dec.reshape(
+                    B, T, *dec.shape[1:])))
+                st_real = st_real.merge(features(real))
+        finally:
+            model.train(was_training)
+        return compute_fvd(st_real, st_gen)
 
     def fit(self, train_loader, val_loader, epochs: int, seed: int = 0,
             save_best: bool = False, fvd_every: int = 0, fvd_i3d=None,
             ckpt_every: int = 1, fvd_protocol: str = "last_k"):
-        if fvd_every:
-            _not_ported("fvd_every", "the ports of models/i3d.py and "
-                                      "evaluation/fvd.py")
         if self.state is None:
             self.init_state(seed=seed)
         history = []
@@ -378,6 +449,11 @@ class Trainer:
                            # crown a bogus 'best' forever (NaN never
                            # compares < best)
                            "val_loss": val_m.get("total_val", float("nan"))}
+                # periodic in-training FVD (the reference's epoch % 5 == 1)
+                if fvd_every and fvd_i3d is not None and (
+                        fvd_every == 1 or epoch % fvd_every == 1):
+                    metrics["FVD score"] = self.fvd_validation(
+                        val_loader, fvd_i3d, protocol=fvd_protocol)
                 self.logger.log(metrics, step=self.state.step)
                 history.append(metrics)
                 # --ckpt_every: a full train-state save moves parameters and
@@ -457,7 +533,7 @@ def build_dataset(cfg: Config, args, stage: str,
                                   path=args.folder or "mnist_test_seq.npy",
                                   stage=stage, seed=args.seed)
     if "ucf" in name:
-        _not_ported(f"--dataset {name}", "the port of data/ucf101.py")
+        not_ported(f"--dataset {name}", "the port of data/ucf101.py")
     raise ValueError(f"unknown dataset {name}")
 
 
@@ -473,7 +549,7 @@ def build_train_parser():
     parser.add_argument("--sweep", action="store_true",
                         help="run the full YAML grid instead of the first point")
     parser.add_argument("--fvd_every", type=int, default=0,
-                        help="compute FVD every N epochs (not ported yet)")
+                        help="compute FVD every N epochs")
     parser.add_argument("--i3d_weights", type=str, default=None)
     parser.add_argument("--fvd_protocol", type=str, default="last_k",
                         choices=("last_k", "reference"))
@@ -497,31 +573,21 @@ def build_train_parser():
     parser.add_argument("--coordinator", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device; default: the card, and an error "
-                             "where there is none ('cpu' has to be asked "
-                             "for)")
-    return parser
+    return add_device_flag(parser)
 
 
 def refuse_unported(args) -> None:
     """Raise for every flag whose feature the port does not have yet, before
     anything is built: a run never carries on without it."""
-    if args.fvd_every:
-        _not_ported("--fvd_every", "the ports of models/i3d.py and "
-                                    "evaluation/fvd.py")
     if args.mesh:
-        _not_ported("--mesh", "the port of parallel/")
+        not_ported("--mesh", MULTI_DEVICE)
     if args.multihost:
-        _not_ported("--multihost", "the port of parallel/")
+        not_ported("--multihost", MULTI_DEVICE)
     if args.native_cache:
-        _not_ported("--native_cache", "the port of data/native_loader.py")
+        not_ported("--native_cache", "the port of data/native_loader.py")
     if "ucf" in args.dataset:
-        _not_ported(f"--dataset {args.dataset}",
+        not_ported(f"--dataset {args.dataset}",
                      "the port of data/ucf101.py")
-    if args.vae_weights:
-        _not_ported("--vae_weights", "the port of the weight-file loader "
-                                      "(diffusion/weights.load_state_dict)")
 
 
 def main(argv=None):
@@ -532,10 +598,20 @@ def main(argv=None):
 
     grid = (sweep_grid(args.config, args.config_dir) if args.sweep
             else [load_config(args.config, args.config_dir)])
+    vae = None
+    if args.codec == "vae" and args.vae_weights:
+        from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
+        from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+        vae = build_from_file(AutoencoderKL, VAEConfig(), "vae",
+                              args.vae_weights, default_device(args.device))
+    fvd_i3d = None
     for cfg in grid:
         trainer = Trainer(cfg, args, mode=args.train_mode,
                           codec_kind=args.codec,
-                          checkpoint_dir=args.checkpoint_dir)
+                          checkpoint_dir=args.checkpoint_dir, vae=vae)
+        if args.fvd_every and fvd_i3d is None:
+            from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
+            fvd_i3d = load_i3d(args.i3d_weights, trainer.device)
         if args.latent_cache:
             from sd_video_gen_tpu_torch.data.latent_cache import (
                 LatentCacheDataset)
@@ -554,7 +630,9 @@ def main(argv=None):
             trainer.resume(args.old_name)
         trainer.fit(train_loader, val_loader, epochs=cfg.epochs,
                     seed=args.seed, save_best=args.save_best,
-                    ckpt_every=args.ckpt_every)
+                    fvd_every=args.fvd_every, fvd_i3d=fvd_i3d,
+                    ckpt_every=args.ckpt_every,
+                    fvd_protocol=args.fvd_protocol)
         trainer.logger.close()
 
 

@@ -7,7 +7,8 @@ image decode and no codec in the loop (``train.trainer --latent_cache``).
 
 Usage:
   python -m sd_video_gen_tpu_torch.utils.preprocess --dataset ball \
-      --folder <dir> --config <cfg> [--codec vae] --out cache/ [--device cpu]
+      --folder <dir> --config <cfg> [--codec vae --vae_weights vae.pt] \
+      --out cache/ [--device cpu]
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from sd_video_gen_tpu_torch.codecs import make_codec
-from sd_video_gen_tpu_torch.config import build_arg_parser, load_config
+from sd_video_gen_tpu_torch.config import (add_device_flag, build_arg_parser,
+                                           load_config)
 
 
 @torch.no_grad()
@@ -50,17 +52,16 @@ def main(argv=None):
     p.add_argument("--codec", type=str, default="pixel",
                    choices=["pixel", "vae"])
     p.add_argument("--out", type=str, default="latent_cache")
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device; default: the card, and an error "
-                        "where there is none")
-    args = p.parse_args(argv)
+    args = add_device_flag(p).parse_args(argv)
     cfg = load_config(args.config, args.config_dir)
 
+    vae = None
     if args.codec == "vae" and args.vae_weights:
-        raise NotImplementedError(
-            "--vae_weights is not ported to sd_video_gen_tpu_torch yet: it "
-            "needs the port of the weight-file loader")
-    if args.codec == "vae":
+        from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
+        from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+        vae = build_from_file(AutoencoderKL, VAEConfig(), "vae",
+                              args.vae_weights, args.device)
+    elif args.codec == "vae":
         # a latent cache is a PERSISTENT artifact; encoding it with a
         # random-init VAE writes garbage to disk that silently poisons
         # every later training run
@@ -68,7 +69,7 @@ def main(argv=None):
             "--codec vae without --vae_weights: building the latent cache "
             "with a RANDOM-INIT VAE — the cached latents are meaningless "
             "for real training", stacklevel=1)
-    codec = make_codec(cfg, args.codec, device=args.device)
+    codec = make_codec(cfg, args.codec, vae=vae, device=args.device)
 
     from sd_video_gen_tpu_torch.train.trainer import build_dataset
     for stage in ("train", "test"):

@@ -12,6 +12,7 @@ import dataclasses
 import glob
 import json
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -70,6 +71,23 @@ def test_there_are_configs_and_a_swept_one(tmp_path):
     cfg = PCfg.Config()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JCfg.Config())
     assert cfg.replace(frame_size=64).latent_dim == 256
+
+
+def test_a_json_config_reads_without_pyyaml(tmp_path, monkeypatch):
+    """JSON is YAML's flow subset: read by PyYAML where it is installed and
+    as JSON where it is not, to the same grid as the JAX package's."""
+    (tmp_path / "flow.yml").write_text(json.dumps(
+        {"LR": [0.1, 0.01], "FRAMES_PER_CLIP": [5], "FRAME_SIZE": 64,
+         "DIM_MODEL": [2048], "USE_CONTRASTIVE": [False]}))
+    want = [dataclasses.asdict(c)
+            for c in JCfg.sweep_grid("flow", str(tmp_path))]
+    assert [dataclasses.asdict(c)
+            for c in PCfg.sweep_grid("flow", str(tmp_path))] == want
+    monkeypatch.setitem(sys.modules, "yaml", None)   # import yaml now fails
+    assert [dataclasses.asdict(c)
+            for c in PCfg.sweep_grid("flow", str(tmp_path))] == want
+    with pytest.raises(ModuleNotFoundError):
+        import yaml  # noqa: F401
 
 
 def _actions(parser):
