@@ -97,11 +97,32 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               launch counts by body (their shapes join phase 3's dry run);
               ``Trainer.fvd_validation`` on ``train_flagship``'s Trainer,
               both protocols; I3D on the card against the CPU
-  9. profile  only with ``--profile``: one warm batch of four paths under
+  9. data     the training input at scale: a seeded Moving-MNIST-layout
+              ``.npy`` at 128px becomes train and test frame caches through
+              ``data/native_loader.main`` (the cache CLI; the ``.bin`` bytes
+              are held against the dataset's clips, clips/s printed); then
+              ``train_native_ucf_vae``: ``train/trainer.main`` with
+              ``--native_cache`` (the C++ loader, built in phase 2) and the
+              reference's UCF config ``11_27_ucf_final`` at its published
+              widths, written as JSON (batch 6, 5 + 5 frames of 128px, one
+              epoch, ``bf16_full``, ``--codec vae``: the frozen SD VAE in
+              f32, seeded, encodes every batch inside the step): finite
+              losses, a checkpoint, warm steps/s and clips/s (the steps
+              after the first), host ms blocked in
+              ``fl_next_batch`` a batch, and exact launches (one K1 on the
+              FMA body and 22 K2 an encoded batch, train and val; the
+              encode's kernel shapes are held against the plain versions in
+              f32 first); the same run again with ``--multihost
+              --num_processes 1`` (one NCCL group): losses and the saved
+              state bit-equal to the first run's, one gradient all-reduce a
+              step; and a few ``--train_mode text`` steps from a labelled
+              cache of a seeded 101-class dataset, whose embedder must get
+              the cache header's class of every served clip
+ 10. profile  only with ``--profile``: one warm batch of four paths under
               torch.profiler, device time bucketed by kernel name; the two
               unprofiled batches of every path, whose walls give the idle
               share, all run before the first trace
- 10. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 11. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -117,9 +138,11 @@ import argparse
 import collections
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -134,6 +157,8 @@ from torch import nn
 
 from sd_video_gen_tpu_torch.codecs import PixelCodec
 from sd_video_gen_tpu_torch.config import Config
+from sd_video_gen_tpu_torch.data import MovingMNISTDataset
+from sd_video_gen_tpu_torch.data import native_loader
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
@@ -159,11 +184,13 @@ from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
 from sd_video_gen_tpu_torch.ops import groupnorm as gn
 from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
                                                   groupnorm_silu_reference)
+from sd_video_gen_tpu_torch.parallel import multihost
 from sd_video_gen_tpu_torch.predict import predict as P
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
 from sd_video_gen_tpu_torch.train.checkpoint import (checkpoint_path,
                                                      save_checkpoint)
+from sd_video_gen_tpu_torch.train import trainer as T
 from sd_video_gen_tpu_torch.train.optim import Adam
 from sd_video_gen_tpu_torch.train.trainer import (Trainer, TrainState,
                                                   encode_or_passthrough)
@@ -317,6 +344,27 @@ EVAL_PATHS = [dict(PATH_DEFAULTS, **p) for p in (
 # largest value.
 I3D_REL_L2 = 1e-4
 I3D_SHAPE = (2, 9, 224, 224, 3)
+# The data phase (phase 9): the reference's UCF config, every value of
+# configs/11_27_ucf_final.yml but two: one epoch, and clips of 10 frames (its
+# 5 context frames and the 5 to predict, as ``train_flagship``'s batch
+# holds them). The frames: a Moving-MNIST-layout .npy of DATA_SEQS
+# sequences at 128px (cv2 is not promised here), 80% of them train clips:
+# 12 train batches of 6 and 3 val batches.
+DATA_CONFIG, DATA_SEQS, DATA_FRAMES = "11_27_ucf_final", 96, 10
+DATA_YML = {"LR": [1e-5], "BATCH_SIZE": [6], "EPOCHS": [1],
+            "EPOCH_RATIO": [1], "NUM_WORKERS": [12],
+            "FRAMES_PER_CLIP": [DATA_FRAMES], "FRAMES_TO_PREDICT": [5],
+            "STRIDE": [1], "FPS": [3], "FRAME_SIZE": TRAIN_FRAME,
+            "DIM_MODEL": [FLAGSHIP["dim_model"]],
+            "NUM_HEADS": [FLAGSHIP["num_heads"]],
+            "NUM_ENCODER_LAYERS": [FLAGSHIP["num_encoder_layers"]],
+            "NUM_DECODER_LAYERS": [FLAGSHIP["num_decoder_layers"]],
+            "DROPOUT_P": [0.1], "USE_MSE": [True], "USE_GDL": [True],
+            "LAMBDA_GDL": [1], "ALPHA": [1], "USE_CONTRASTIVE": [True],
+            "LAMBDA_CONTRASTIVE": [0.025]}
+# The text-mode path: a labelled cache of a seeded in-script dataset of
+# TEXT_CLASSES classes (train and test clips), PixelCodec.
+DATA_TEXT_CLIPS = (24, 12)
 # The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -369,10 +417,30 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """The CUDA kernels and, beside them in a thread of its own, the C++
+    frame loader (g++): a build failure ends the run here."""
     t0 = time.perf_counter()
-    _kernels.library()
+    loader = {}
+
+    def build_loader():
+        try:
+            native_loader._load_lib()
+            loader["seconds"] = time.perf_counter() - t0
+        except Exception as e:  # re-raised below, in this thread
+            loader["error"] = e
+
+    thread = threading.Thread(target=build_loader)
+    thread.start()
+    try:
+        _kernels.library()
+    finally:
+        thread.join()
+    if "error" in loader:
+        raise loader["error"]
     log(f"build: {_kernels.BUILD['path']} nvcc {_kernels.BUILD['seconds']:.2f} s"
-        f" (load included {time.perf_counter() - t0:.2f} s)")
+        f" (load included {time.perf_counter() - t0:.2f} s); frame loader "
+        f"{native_loader.library_path()} built or loaded in "
+        f"{loader['seconds']:.2f} s")
 
 
 def _assert_finite(name, x):
@@ -1141,7 +1209,8 @@ def run_train_path(path, trainer, enc_launches) -> dict:
         f"{TRAIN_TIMED} timed steps in {wall:.3f} s: "
         f"{TRAIN_TIMED / wall:.3f} steps/s, "
         f"{TRAIN_TIMED * cfg.batch_size / wall:.1f} clips/s; host ms a step "
-        f"(enqueue) mean {timed_m['step_ms_mean']:.1f}; loss first "
+        f"mean {timed_m['step_ms_mean']:.1f} (the host waits at each batch's "
+        f"copy for the step before); loss first "
         f"{losses[0]:.6f}, mean of the timed steps {losses[1]:.6f}, last "
         f"{losses[2]:.6f} ({'fell' if losses[2] < losses[0] else 'did not fall'}"
         f" in {steps} steps); components of the last step "
@@ -1523,6 +1592,281 @@ def phase_eval(models, files, sd_files, flagship) -> dict:
     return total
 
 
+def data_files(workdir) -> dict:
+    """The data phase's config (JSON: PyYAML is not promised here) and its
+    frames: a Moving-MNIST-layout (T, N, 128, 128) .npy, a bright square
+    moving across each sequence."""
+    rng = np.random.default_rng(13)
+    size = TRAIN_FRAME
+    mnist = np.zeros((DATA_FRAMES, DATA_SEQS, size, size), np.uint8)
+    for n in range(DATA_SEQS):
+        (y, x), (dy, dx) = rng.integers(8, 72, 2), rng.integers(-6, 7, 2)
+        for t in range(DATA_FRAMES):
+            ty, tx = y + (dy * t) % 40, x + (dx * t) % 40
+            mnist[t, n, ty:ty + 32, tx:tx + 32] = rng.integers(96, 256)
+    files = dict(dir=workdir, mnist=os.path.join(workdir, "mnist128.npy"),
+                 cache=os.path.join(workdir, "frame_cache"),
+                 text_cache=os.path.join(workdir, "text_cache"),
+                 checkpoints=os.path.join(workdir, "checkpoints"))
+    np.save(files["mnist"], mnist)
+
+    def value(v):
+        # YAML 1.1 reads 1e-05 as a string: floats in exponent form need a
+        # mantissa with a point (1.0e-05) for both JSON and PyYAML
+        if isinstance(v, list):
+            return "[" + ", ".join(value(x) for x in v) + "]"
+        if isinstance(v, float) and "e" in repr(v):
+            return f"{v:.1e}"
+        return json.dumps(v)
+    with open(os.path.join(workdir, DATA_CONFIG + ".yml"), "w") as f:
+        f.write("{" + ", ".join(f"{json.dumps(k)}: {value(v)}"
+                                for k, v in DATA_YML.items()) + "}")
+    return files
+
+
+def build_caches(files) -> dict:
+    """The train and test frame caches through the cache CLI; each .bin
+    held byte for byte against its dataset's clips. Returns clips by
+    stage."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        native_loader.main(["--dataset", "mnist", "--folder", files["mnist"],
+                            "--config", DATA_CONFIG, "--config_dir",
+                            files["dir"], "--out", files["cache"]])
+    wall = time.perf_counter() - t0
+    clips = {}
+    for stage in ("train", "test"):
+        ds = MovingMNISTDataset(DATA_FRAMES, 1, files["mnist"], stage, seed=0)
+        want = np.stack([ds[i][1] for i in range(len(ds))])
+        got = np.fromfile(os.path.join(files["cache"], f"{stage}.bin"),
+                          np.uint8)
+        if not np.array_equal(got, want.reshape(-1)):
+            raise AssertionError(f"data: the {stage} cache's bytes are not "
+                                 f"the dataset's clips")
+        clips[stage] = len(ds)
+    n = sum(clips.values())
+    log(f"data: cache CLI wrote {clips} clips of {list(want.shape[1:])} "
+        f"uint8 ({n * want[0].nbytes / 2 ** 20:.1f} MiB) in {wall:.3f} s: "
+        f"{n / wall:.1f} clips/s; bytes equal to the dataset's clips "
+        f"({out.getvalue().strip().splitlines()})")
+    return clips
+
+
+def data_signatures(enc_vae) -> list:
+    """The data path's encode (6 clips x 10 frames at 128px, the f32 VAE)
+    with the plain versions records its kernel shapes; each is held against
+    its plain version in f32."""
+    frames = np.zeros((6, DATA_FRAMES, TRAIN_FRAME, TRAIN_FRAME, 3), np.uint8)
+    with _kernels.force_reference(), _kernels.record_calls() as rec:
+        encode_or_passthrough(VAECodec(TRAIN_FRAME, enc_vae), frames, True)
+    torch.cuda.synchronize()
+    return check_signatures(rec.calls, (torch.float32,), what="data f32: ")
+
+
+@contextlib.contextmanager
+def timed_train_loops():
+    """Times of every ``Trainer.train_loop`` run while open: (seconds,
+    steps, warm seconds). The seconds run from a synchronised device to the
+    loop's own loss fetch (which waits for its last step); the warm seconds
+    from the first step's end (the device synchronised there once) to the
+    same fetch."""
+    walls, real = [], Trainer.train_loop
+
+    def timed(self, loader, seed=0):
+        step_fn, first = self._step_fn, []
+
+        def step(*args):
+            out = step_fn(*args)
+            if not first:
+                torch.cuda.synchronize()
+                first.append(time.perf_counter())
+            return out
+        self._step_fn = step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = real(self, loader, seed)
+        finally:
+            self._step_fn = step_fn
+        t1 = time.perf_counter()
+        walls.append((t1 - t0, out.get("steps_timed", 0), t1 - first[0]))
+        return out
+    Trainer.train_loop = timed
+    try:
+        yield walls
+    finally:
+        Trainer.train_loop = real
+
+
+def run_native_path(files, name, extra=()) -> tuple:
+    """``train/trainer.main`` from the native cache; returns (the epoch's
+    metrics, the launch window, train steps, batches served, the checkpoint's
+    path)."""
+    argv = ["--dataset", "mnist", "--config", DATA_CONFIG, "--config_dir",
+            files["dir"], "--native_cache", files["cache"], "--codec", "vae",
+            "--precision", "bf16_full", "--checkpoint_dir",
+            files["checkpoints"], "--debug", "True", *extra]
+    native_loader.NEXT_BATCH.clear()
+    multihost.COLLECTIVES.clear()
+    before = set(os.listdir(files["checkpoints"])) \
+        if os.path.isdir(files["checkpoints"]) else set()
+    with timed_train_loops() as walls, launch_window() as window, \
+            contextlib.redirect_stdout(io.StringIO()):   # the main path
+        (history,) = T.main(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ckpt,) = set(os.listdir(files["checkpoints"])) - before
+    (m,) = history
+    (wall, steps, warm), = walls
+    waited = native_loader.NEXT_BATCH
+    if not all(np.isfinite(v) for v in m.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"{name}: non-finite metrics {m}")
+    log(f"{name}: one epoch, {steps} steps of 6 clips x {DATA_FRAMES} frames "
+        f"of {TRAIN_FRAME}px in {wall:.3f} s, the first step included; "
+        f"the {steps - 1} warm steps in {warm:.3f} s: "
+        f"{(steps - 1) / warm:.3f} steps/s, {6 * (steps - 1) / warm:.1f} "
+        f"clips/s; host ms a step mean {m['step_ms_mean']:.1f} (the host "
+        f"waits at each batch's copy for the step before); "
+        f"host blocked in fl_next_batch {waited['seconds'] * 1e3:.2f} ms over "
+        f"{waited['batches']} batches (train and val), "
+        f"{waited['seconds'] * 1e3 / max(waited['batches'], 1):.3f} ms a "
+        f"batch; train loss {m['train_loss']:.6f}, val loss "
+        f"{m['val_loss']:.6f}; checkpoint {ckpt}; collectives "
+        f"{dict(multihost.COLLECTIVES)}")
+    return m, window, steps, waited["batches"], \
+        os.path.join(files["checkpoints"], ckpt)
+
+
+def _same_state(path_a, path_b) -> bool:
+    a, b = (torch.load(os.path.join(p, "state.pt"), map_location="cpu",
+                       mmap=True, weights_only=True) for p in (path_a, path_b))
+    return a["step"] == b["step"] and all(
+        torch.equal(v, b[tree][k]) for tree in ("params", "mu", "nu")
+        for k, v in a[tree].items())
+
+
+class LabelledClips:
+    """A seeded dataset of TEXT_CLASSES classes: n clips of 10 128px
+    frames, clip i of class drawn from the seed."""
+
+    def __init__(self, n, seed):
+        rng = np.random.default_rng(seed)
+        self.labels = rng.integers(0, TEXT_CLASSES, n).tolist()
+        self.clips = rng.integers(0, 256, (n, DATA_FRAMES, TRAIN_FRAME,
+                                           TRAIN_FRAME, 3), dtype=np.uint8)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return [self.labels[i]] * DATA_FRAMES, self.clips[i]
+
+
+def run_text_path(files):
+    """A few ``--train_mode text`` steps from a labelled cache through
+    ``_LabelMappedLoader``: the embedder must get the header's class of
+    every clip the loader served."""
+    for stage, n, seed in (("train", DATA_TEXT_CLIPS[0], 21),
+                           ("test", DATA_TEXT_CLIPS[1], 22)):
+        native_loader.build_frame_cache(LabelledClips(n, seed),
+                                        files["text_cache"], stage)
+    served, embedded = [], []
+    real_iter, real_call = (native_loader.NativeBatchLoader.__iter__,
+                            ClassNameEmbedder.__call__)
+
+    def spy_iter(self):
+        for ids, frames in real_iter(self):
+            served.append([self.labels[i] for i in ids])
+            yield ids, frames
+
+    def spy_call(self, labels):
+        embedded.append(np.asarray(labels).tolist())
+        return real_call(self, labels)
+    native_loader.NativeBatchLoader.__iter__ = spy_iter
+    ClassNameEmbedder.__call__ = spy_call
+    try:
+        with launch_window() as window, \
+                contextlib.redirect_stdout(io.StringIO()):
+            (history,) = T.main([
+                "--dataset", "mnist", "--config", DATA_CONFIG, "--config_dir",
+                files["dir"], "--native_cache", files["text_cache"],
+                "--train_mode", "text", "--codec", "pixel", "--precision",
+                "bf16_full", "--checkpoint_dir", files["checkpoints"],
+                "--debug", "True"])
+    finally:
+        native_loader.NativeBatchLoader.__iter__ = real_iter
+        ClassNameEmbedder.__call__ = real_call
+    gc.collect()
+    torch.cuda.empty_cache()
+    (m,) = history
+    if served != embedded or not served:
+        raise AssertionError(f"text: the embedder got {embedded}, the cache "
+                             f"served {served}")
+    if not (np.isfinite(m["train_loss"]) and np.isfinite(m["val_loss"])):
+        raise AssertionError(f"text: non-finite losses {m}")
+    window.check("train_native_text", {k: 0 for k in KERNELS})
+    log(f"train_native_text: {len(served)} batches (train and val) through "
+        f"_LabelMappedLoader; the embedder got the header's class of every "
+        f"served clip; train loss {m['train_loss']:.6f}, val loss "
+        f"{m['val_loss']:.6f}")
+
+
+def phase_data(workdir) -> dict:
+    """The cache CLI, ``train_native_ucf_vae`` plain and under a one-process
+    NCCL group, and the text-mode path; returns the main path's
+    launches (the plain run's)."""
+    t0 = time.perf_counter()
+    files = data_files(workdir)
+    clips = build_caches(files)
+    train_b, val_b = clips["train"] // 6, clips["test"] // 6
+    vae = build(AutoencoderKL, VAEConfig(), "cuda")   # the trainer's codec
+    enc = {"flash_attention": sum(isinstance(x, AttnBlock)
+                                  for x in vae.encoder.modules()),
+           "groupnorm_silu": sum(isinstance(x, nn.GroupNorm)
+                                 for x in vae.encoder.modules())}
+    rows = data_signatures(vae)
+    del vae
+    torch.cuda.empty_cache()
+    expected = {k: (train_b + val_b) * n for k, n in enc.items()}
+    log(f"data: {len(rows)} kernel rows at the path's shapes agree in f32; "
+        f"expected launches {expected} = ({train_b} train + {val_b} val "
+        f"batches) x {enc} an encode")
+    name = "train_native_ucf_vae"
+    plain, window, steps, batches, ckpt_a = run_native_path(files, name)
+    window.check(name, expected, flash_body="fma")
+    if (steps, batches) != (train_b, train_b + val_b):
+        raise AssertionError(f"{name}: {steps} steps, {batches} batches")
+    with socket.socket() as s:          # a free port for the coordinator
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host, no network
+    try:
+        group, window2, _, _, ckpt_b = run_native_path(
+            files, name + "_multihost",
+            ("--multihost", "--num_processes", "1", "--process_id", "0",
+             "--coordinator", f"127.0.0.1:{port}"))
+        reduced = dict(multihost.COLLECTIVES)
+        backend = torch.distributed.get_backend()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    window2.check(name + "_multihost", expected, flash_body="fma")
+    losses = lambda m: {k: v for k, v in m.items() if k.endswith(("_train",
+                                                                  "_val"))}
+    same = losses(plain) == losses(group) and _same_state(ckpt_a, ckpt_b)
+    log(f"{name}_multihost: {backend} group of 1: losses, parameters and "
+        f"moments {'equal bit for bit' if same else 'DIFFER'} to the plain "
+        f"run's; gradient all-reduces {reduced.get('grads', 0)} for {steps} "
+        f"steps")
+    if not same or backend != "nccl" or reduced.get("grads") != steps:
+        raise AssertionError(f"{name}_multihost: same {same}, backend "
+                             f"{backend}, collectives {reduced}")
+    run_text_path(files)
+    log(f"data: {time.perf_counter() - t0:.1f} s")
+    return window.launches
+
+
 # Device-time buckets of the profile, by kernel name; the first match wins.
 PROFILE_BUCKETS = (
     ("K1 flash attention", ("flash_fwd",)),
@@ -1724,9 +2068,14 @@ def main() -> int:
             phase_check(models)
             train_launches, flagship = phase_train(models, workdir)
             eval_launches = phase_eval(models, files, sd_files, flagship)
-            for k in KERNELS:
-                launches[k] += train_launches[k] + eval_launches[k]
             del flagship
+            data_dir = os.path.join(workdir, "data")
+            os.makedirs(data_dir)
+            with contextlib.chdir(data_dir):      # the trainer logs to ./logs
+                data_launches = phase_data(data_dir)
+            for k in KERNELS:
+                launches[k] += (train_launches[k] + eval_launches[k]
+                                + data_launches[k])
             if args.profile:
                 phase_profile(models)
             if args.tune:

@@ -267,7 +267,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-MULTI_DEVICE = "the port of parallel/ (ROADMAP queue 1, multi-device)"
+# What a multi-device flag still waits for: data parallelism across
+# processes is ported (``parallel/``); splitting a model across devices is not.
+MULTI_DEVICE = ("the tensor-parallel half of the multi-device port (ROADMAP "
+                "queue 1, item 5: sharding rules, ring attention, sharded "
+                "predict and FVD)")
 
 
 def not_ported(flag: str, needs: str):

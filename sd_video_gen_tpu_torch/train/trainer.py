@@ -34,9 +34,19 @@ the ground truth through I3D (``evaluation/fvd.py``), per-batch sums on the
 device, the merge on the host in f64. ``--vae_weights`` loads the VAE codec
 from a weight file (``diffusion/weights.py``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: device
-meshes and multi-process runs (``--mesh``, ``--multihost``), the native
-frame cache (``--native_cache``) and UCF-101 (``--dataset ucf*``).
+Input: the frame datasets, UCF-101 (``--dataset ucf*``,
+``data/ucf101.py``) or a pre-built frame cache read by the C++ loader
+(``--native_cache``, ``data/native_loader.py``).
+
+Data parallel across processes (``--multihost``, or torchrun), one device
+each (``parallel/``): every process loads its slice of each global batch,
+runs the step on its own device, and the gradients are averaged across
+processes after the backward pass (with equal slices, the global batch's
+mean gradient); the epoch's loss sums are averaged the same way. Rank 0
+alone logs and writes checkpoints, the others wait for it at a barrier.
+Each rank folds its rank into the dropout seed. Not ported yet, and raising
+``NotImplementedError`` when asked for: a mesh with a ``model`` axis above 1
+(tensor parallelism).
 """
 
 from __future__ import annotations
@@ -49,9 +59,8 @@ import numpy as np
 import torch
 
 from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
-from sd_video_gen_tpu_torch.config import (MULTI_DEVICE, Config,
-                                           add_device_flag, build_arg_parser,
-                                           load_config, not_ported,
+from sd_video_gen_tpu_torch.config import (Config, add_device_flag,
+                                           build_arg_parser, load_config,
                                            sweep_grid)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
@@ -59,6 +68,8 @@ from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
 from sd_video_gen_tpu_torch.ops.losses import LossWeights, composite_loss
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
+from sd_video_gen_tpu_torch.parallel import (default_mesh_for_batch,
+                                             multihost, parse_mesh_spec)
 from sd_video_gen_tpu_torch.train import checkpoint as ckpt
 from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
 from sd_video_gen_tpu_torch.train.optim import Adam
@@ -133,12 +144,14 @@ def _predictions_and_targets(model, latents, k: int, mode: str,
     return pred_k, y_exp[:, -k:]
 
 
-def dropout_seed(seed: int, step: int) -> int:
+def dropout_seed(seed: int, step: int, rank: int = 0) -> int:
     """The dropout generator's seed for step number ``step`` of a run seeded
-    with ``seed``: a fixed function of the two, so the draws of a step do
-    not depend on how the run reached it."""
+    with ``seed``, on process ``rank``: a fixed function of the three, so
+    the draws of a step do not depend on how the run reached it, and the
+    processes of a data-parallel run draw other masks for their other
+    samples (rank 0 draws what a single process does)."""
     return (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9
-            + 0x94D049BB133111EB) % (1 << 63)
+            + int(rank) * 0xD6E8FEB86659FD93 + 0x94D049BB133111EB) % (1 << 63)
 
 
 def _device_of(model) -> torch.device:
@@ -161,12 +174,18 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     one optimizer step in place; the components are 0-d tensors on the
     device (no synchronisation). ``mu_dtype`` goes to Adam. Loss terms are
     always computed in f32, whatever the model's compute dtype (GDL's
-    differences and NCE's logits lose real precision in bf16)."""
+    differences and NCE's logits lose real precision in bf16).
+    In a process group (``parallel/multihost.py``) the gradients are
+    averaged over the processes (one all-reduce a step) before the update,
+    and the rank salts the dropout seed; the components stay this process's
+    own."""
     k = cfg.frames_to_predict
     use_sos = mode not in ("future", "learned_tgt")
     opt = Adam(cfg.lr, mu_dtype=mu_dtype)
     device = _device_of(model)
     generator = torch.Generator(device=device)
+    rank = multihost.process_index()
+    reduce_grads = torch.distributed.is_initialized()
 
     def init_fn() -> TrainState:
         return TrainState(model, opt.init(dict(model.named_parameters())))
@@ -174,7 +193,7 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     def step_fn(state: TrainState, frames, seed: int, text_embeds=None):
         if not model.training:
             model.train()
-        generator.manual_seed(dropout_seed(seed, state.step))
+        generator.manual_seed(dropout_seed(seed, state.step, rank))
         latents = encode_or_passthrough(codec, frames, use_sos)
         pred_k, target_k = _predictions_and_targets(
             model, latents, k, mode, generator,
@@ -184,6 +203,9 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
         names = list(state.params)
         grads = torch.autograd.grad(total, [state.params[n] for n in names],
                                     allow_unused=True)
+        if reduce_grads:
+            multihost.all_reduce_mean([g for g in grads if g is not None],
+                                      "grads")
         state.step += 1
         opt.update(state.params, dict(zip(names, grads)), state.opt_state,
                    state.step)
@@ -214,13 +236,26 @@ def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
     return eval_fn
 
 
+class _NoLogger:
+    """The metrics stream of a process other than rank 0: nothing (rank 0
+    logs the run, whose metrics every process holds alike)."""
+
+    def log(self, metrics: dict, step: int | None = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     """Fit a FrameTransformer on a frame dataset; owns state/ckpt/metrics.
 
     ``device`` defaults to the card and raises where there is none (the CPU
-    has to be asked for: ``device='cpu'`` or ``--device cpu``). ``vae`` is
-    the frozen ``AutoencoderKL`` of ``codec_kind='vae'`` (seeded random
-    weights at SD widths when none is given)."""
+    has to be asked for: ``device='cpu'`` or ``--device cpu``); in a process
+    group, the card is this rank's own. ``vae`` is the frozen
+    ``AutoencoderKL`` of ``codec_kind='vae'`` (seeded random weights at SD
+    widths when none is given). ``args.mesh`` (``--mesh``) must describe
+    the process group: ``data`` = the process count, ``model`` = 1."""
 
     def __init__(self, cfg: Config, args=None, mode: str = "ar",
                  codec_kind: str = "pixel", model_cfg=None,
@@ -235,10 +270,17 @@ class Trainer:
                           else getattr(args, "precision", "f32") or "f32")
         if self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision}")
-        if args is not None and getattr(args, "mesh", None):
-            not_ported("--mesh", MULTI_DEVICE)
-        self.device = default_device(
-            device if device is not None else getattr(args, "device", None))
+        spec = getattr(args, "mesh", None) if args is not None else None
+        # the mesh is the process group: the spec must describe it, and the
+        # global batch must divide over its processes
+        if spec:
+            parse_mesh_spec(spec)
+        default_mesh_for_batch(cfg.batch_size)
+        self.rank = multihost.process_index()
+        self.is_coordinator = multihost.is_coordinator()
+        self.distributed = torch.distributed.is_initialized()
+        self.device = multihost.rank_device(default_device(
+            device if device is not None else getattr(args, "device", None)))
         self.codec = make_codec(cfg, codec_kind, vae=vae, device=self.device)
         mc = model_cfg or FrameTransformerConfig.from_config(
             cfg, mode=mode if mode in ("future", "learned_tgt", "text")
@@ -256,8 +298,9 @@ class Trainer:
         self.index = ckpt.checkpoint_index(checkpoint_dir, cfg.config_name)
         self.run_name = run_name or f"{cfg.config_name}_{self.index}"
         debug = bool(getattr(args, "debug", False)) if args else False
-        self.logger = MetricsLogger(self.run_name, log_dir=log_dir,
-                                    use_wandb=use_wandb and not debug)
+        self.logger = (MetricsLogger(self.run_name, log_dir=log_dir,
+                                     use_wandb=use_wandb and not debug)
+                       if self.is_coordinator else _NoLogger())
         self.model = None
         self.state = None
         self.best_train = float("inf")
@@ -324,12 +367,21 @@ class Trainer:
         return {f"{'L1' if k == 'l1' else k}_{suffix}": v
                 for k, v in zip(keys, means)}
 
+    def _reduced(self, sums):
+        """The epoch's loss sums averaged over the processes: each summed
+        the means of its own slices, so the average is the sum of the
+        global batches' means."""
+        if self.distributed and sums is not None:
+            multihost.all_reduce_mean([sums], "metrics")
+        return sums
+
     def train_loop(self, loader, seed: int = 0):
         from sd_video_gen_tpu_torch.utils.profiling import StepTimer
         timer = StepTimer()
         keys, sums, nb = None, None, 0
         for indices, frames in loader:
             timer.start()
+            frames = multihost.global_batch_from_local(frames, self.device)
             self.state, comps = self._step_fn(self.state, frames, seed,
                                               self._texts(indices))
             timer.stop()
@@ -337,13 +389,14 @@ class Trainer:
             stacked = torch.stack([comps[k] for k in keys])
             sums = stacked if sums is None else sums + stacked
             nb += 1
-        out = self._means(keys, sums, nb, "train")
+        out = self._means(keys, self._reduced(sums), nb, "train")
         out.update(timer.summary())
         return out
 
     def validation_loop(self, loader):
         keys, sums, nb = None, None, 0
         for indices, frames in loader:
+            frames = multihost.global_batch_from_local(frames, self.device)
             comps = self._eval_fn(frames, self._texts(indices))
             keys = list(comps)
             stacked = torch.stack([comps[k] for k in keys])
@@ -353,7 +406,7 @@ class Trainer:
             warnings.warn(
                 "validation epoch yielded no batches (dataset smaller than "
                 "one batch?) — val metrics report 0", stacklevel=2)
-        return self._means(keys, sums, nb, "val")
+        return self._means(keys, self._reduced(sums), nb, "val")
 
     @torch.no_grad()
     def fvd_validation(self, loader, i3d, max_batches: int = 8,
@@ -405,7 +458,8 @@ class Trainer:
                         "video), but the loader yields pre-encoded latents "
                         "— --latent_cache cannot be combined with "
                         "--fvd_every")
-                frames = torch.as_tensor(np.asarray(frames)).to(self.device)
+                frames = multihost.global_batch_from_local(frames,
+                                                           self.device)
                 te = self._texts(indices)
                 latents = encode_or_passthrough(
                     self.codec, frames,
@@ -430,7 +484,21 @@ class Trainer:
                 st_real = st_real.merge(features(real))
         finally:
             model.train(was_training)
+        if self.distributed:
+            st_real, st_gen = (self._pooled(st) for st in (st_real, st_gen))
         return compute_fvd(st_real, st_gen)
+
+    def _pooled(self, st):
+        """FVD statistics over every process's clips: the mean over the
+        processes of (n, sum, sum of outer products), whose mean and
+        covariance are the pooled ones (the JAX trainer streams the
+        assembled global batch)."""
+        from sd_video_gen_tpu_torch.evaluation.fvd import FeatureStats
+        parts = [torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+                 for a in (st.n, st.raw_sum, st.raw_prod)]
+        multihost.all_reduce_mean(parts, "fvd_stats")
+        n, raw_sum, raw_prod = (p.cpu().numpy() for p in parts)
+        return FeatureStats(st.dim, np.float64(n), raw_sum, raw_prod)
 
     def fit(self, train_loader, val_loader, epochs: int, seed: int = 0,
             save_best: bool = False, fvd_every: int = 0, fvd_i3d=None,
@@ -465,8 +533,10 @@ class Trainer:
                 if save_best or epoch % max(ckpt_every, 1) == 0 \
                         or epoch == epochs:
                     self._save(metrics, save_best)
+                    multihost.barrier()   # rank 0 has started the save
             # drain the epoch save in flight before declaring fit done
             ckpt.finalize_saves()
+            multihost.barrier()           # ... and written it
         except (KeyboardInterrupt, SystemExit, Exception) as e:
             # failure/preemption handling: persist an emergency checkpoint
             # (parameters + moments + step) so --resume continues exactly
@@ -494,10 +564,30 @@ class Trainer:
             self.save("test", block=False)
 
     def save(self, mode_tag: str, block: bool = True):
+        """Write the train state (rank 0 only: every process holds the same
+        one); returns the checkpoint's path."""
         path = ckpt.checkpoint_path(self.checkpoint_dir, self.cfg.config_name,
                                     self.index, mode_tag)
-        ckpt.save_checkpoint(path, self.state.state_dict(), block=block)
+        if self.is_coordinator:
+            ckpt.save_checkpoint(path, self.state.state_dict(), block=block)
         return path
+
+
+class _LabelMappedLoader:
+    """Yield (labels, frames) from a ``NativeBatchLoader``, which yields clip
+    indices, through ITS OWN split's clip -> class table: the contract
+    ``BatchLoader`` keeps for class datasets."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.labels = loader.labels
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for ids, frames in self.loader:
+            yield [self.labels[int(i)] for i in ids], frames
 
 
 def build_dataset(cfg: Config, args, stage: str,
@@ -533,7 +623,9 @@ def build_dataset(cfg: Config, args, stage: str,
                                   path=args.folder or "mnist_test_seq.npy",
                                   stage=stage, seed=args.seed)
     if "ucf" in name:
-        not_ported(f"--dataset {name}", "the port of data/ucf101.py")
+        from sd_video_gen_tpu_torch.data.ucf101 import UCF101Dataset
+        return UCF101Dataset.from_args(cfg, args, stage,
+                                       exact_frames=exact_frames)
     raise ValueError(f"unknown dataset {name}")
 
 
@@ -557,8 +649,8 @@ def build_train_parser():
                         help="train from a utils/preprocess.py latent cache "
                              "dir instead of decoding frames")
     parser.add_argument("--native_cache", type=str, default=None,
-                        help="a data/native_loader.py frame cache dir (not "
-                             "ported yet)")
+                        help="feed batches through the C++ fastloader from a "
+                             "data/native_loader.py frame cache dir")
     parser.add_argument("--ckpt_every", type=int, default=1,
                         help="checkpoint every N epochs (final epoch always "
                              "saves; a flagship train-state save moves GBs). "
@@ -569,30 +661,26 @@ def build_train_parser():
                         help="f32 | bf16 (bf16 compute, f32 master weights) "
                              "| bf16_full (bf16 weights + bf16 Adam moments)")
     parser.add_argument("--multihost", action="store_true",
-                        help="join a multi-process run (not ported yet)")
-    parser.add_argument("--coordinator", type=str, default=None)
+                        help="join a data-parallel run of one process per "
+                             "device (torch.distributed: NCCL on the card, "
+                             "gloo on the CPU); each process loads only its "
+                             "slice of every global batch")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rank 0's host:port (torchrun's MASTER_ADDR / "
+                             "MASTER_PORT where absent)")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     return add_device_flag(parser)
 
 
-def refuse_unported(args) -> None:
-    """Raise for every flag whose feature the port does not have yet, before
-    anything is built: a run never carries on without it."""
-    if args.mesh:
-        not_ported("--mesh", MULTI_DEVICE)
-    if args.multihost:
-        not_ported("--multihost", MULTI_DEVICE)
-    if args.native_cache:
-        not_ported("--native_cache", "the port of data/native_loader.py")
-    if "ucf" in args.dataset:
-        not_ported(f"--dataset {args.dataset}",
-                     "the port of data/ucf101.py")
-
-
 def main(argv=None):
+    """The trainer's CLI; returns the fit history of each grid point."""
     args = build_train_parser().parse_args(argv)
-    refuse_unported(args)
+    if args.multihost:
+        # before anything touches a device: the group picks this process's
+        # card
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, args.device)
 
     from sd_video_gen_tpu_torch.data import BatchLoader
 
@@ -602,9 +690,11 @@ def main(argv=None):
     if args.codec == "vae" and args.vae_weights:
         from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
         from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-        vae = build_from_file(AutoencoderKL, VAEConfig(), "vae",
-                              args.vae_weights, default_device(args.device))
+        vae = build_from_file(
+            AutoencoderKL, VAEConfig(), "vae", args.vae_weights,
+            multihost.rank_device(default_device(args.device)))
     fvd_i3d = None
+    histories = []
     for cfg in grid:
         trainer = Trainer(cfg, args, mode=args.train_mode,
                           codec_kind=args.codec,
@@ -612,28 +702,64 @@ def main(argv=None):
         if args.fvd_every and fvd_i3d is None:
             from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
             fvd_i3d = load_i3d(args.i3d_weights, trainer.device)
-        if args.latent_cache:
-            from sd_video_gen_tpu_torch.data.latent_cache import (
-                LatentCacheDataset)
-            train_ds = LatentCacheDataset(args.latent_cache, "train")
-            val_ds = LatentCacheDataset(args.latent_cache, "test")
+        # every process derives the same global epoch order from the shared
+        # seed and loads only its contiguous slice of each global batch
+        # (both loaders keep that contract); ragged tails trim to a multiple
+        # of the process count (the data axis)
+        count = multihost.process_count()
+        shard = (trainer.rank, count) if count > 1 else None
+        if args.native_cache:
+            from sd_video_gen_tpu_torch.data.native_loader import (
+                NativeBatchLoader)
+            train_loader = NativeBatchLoader(
+                args.native_cache, "train", cfg.batch_size,
+                epoch_ratio=cfg.epoch_ratio, flip=args.flip, seed=args.seed,
+                n_threads=max(1, cfg.num_workers),
+                process_shard=shard, shard_multiple=count)
+            val_loader = NativeBatchLoader(
+                args.native_cache, "test", cfg.batch_size,
+                epoch_ratio=cfg.epoch_ratio, seed=args.seed,
+                n_threads=max(1, cfg.num_workers),
+                process_shard=shard, shard_multiple=count)
+            if args.train_mode == "text":
+                if train_loader.labels is None or val_loader.labels is None:
+                    raise ValueError(
+                        "--train_mode text needs class labels, but this "
+                        "native cache has none (built from a no-class "
+                        "dataset, or predates label storage — rebuild it "
+                        "with data.native_loader)")
+                # each split has its own clip -> class table (val indices
+                # through the train table would condition validation on the
+                # wrong classes)
+                train_loader = _LabelMappedLoader(train_loader)
+                val_loader = _LabelMappedLoader(val_loader)
         else:
-            train_ds = build_dataset(cfg, args, "train")
-            val_ds = build_dataset(cfg, args, "test")
-        train_loader = BatchLoader(train_ds, cfg.batch_size,
-                                   epoch_ratio=cfg.epoch_ratio,
-                                   seed=args.seed)
-        val_loader = BatchLoader(val_ds, cfg.batch_size,
-                                 epoch_ratio=cfg.epoch_ratio, seed=args.seed)
-        if args.resume:
+            if args.latent_cache:
+                from sd_video_gen_tpu_torch.data.latent_cache import (
+                    LatentCacheDataset)
+                train_ds = LatentCacheDataset(args.latent_cache, "train")
+                val_ds = LatentCacheDataset(args.latent_cache, "test")
+            else:
+                train_ds = build_dataset(cfg, args, "train")
+                val_ds = build_dataset(cfg, args, "test")
+            train_loader = BatchLoader(train_ds, cfg.batch_size,
+                                       epoch_ratio=cfg.epoch_ratio,
+                                       seed=args.seed, process_shard=shard,
+                                       shard_multiple=count)
+            val_loader = BatchLoader(val_ds, cfg.batch_size,
+                                     epoch_ratio=cfg.epoch_ratio,
+                                     seed=args.seed, process_shard=shard,
+                                     shard_multiple=count)
+        if args.resume:   # on every process
             trainer.init_state(seed=args.seed)
             trainer.resume(args.old_name)
-        trainer.fit(train_loader, val_loader, epochs=cfg.epochs,
-                    seed=args.seed, save_best=args.save_best,
-                    fvd_every=args.fvd_every, fvd_i3d=fvd_i3d,
-                    ckpt_every=args.ckpt_every,
-                    fvd_protocol=args.fvd_protocol)
+        histories.append(trainer.fit(
+            train_loader, val_loader, epochs=cfg.epochs, seed=args.seed,
+            save_best=args.save_best, fvd_every=args.fvd_every,
+            fvd_i3d=fvd_i3d, ckpt_every=args.ckpt_every,
+            fvd_protocol=args.fvd_protocol))
         trainer.logger.close()
+    return histories
 
 
 if __name__ == "__main__":

@@ -302,7 +302,14 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             "sd_video_gen_tpu_torch.data.pipeline",
             "sd_video_gen_tpu_torch.data.latent_cache",
             "sd_video_gen_tpu_torch.utils.profiling",
-            "sd_video_gen_tpu_torch.utils.preprocess"} <= set(mods)
+            "sd_video_gen_tpu_torch.utils.preprocess",
+            "sd_video_gen_tpu_torch.utils.video",
+            "sd_video_gen_tpu_torch.utils.format_data",
+            "sd_video_gen_tpu_torch.data.ucf101",
+            "sd_video_gen_tpu_torch.data.native_loader",
+            "sd_video_gen_tpu_torch.parallel",
+            "sd_video_gen_tpu_torch.parallel.mesh",
+            "sd_video_gen_tpu_torch.parallel.multihost"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
