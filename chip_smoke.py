@@ -118,11 +118,30 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               step; and a few ``--train_mode text`` steps from a labelled
               cache of a seeded 101-class dataset, whose embedder must get
               the cache header's class of every served clip
- 10. profile  only with ``--profile``: one warm batch of four paths under
+ 10. tp       tensor and data parallelism, rehearsed on the one card: each
+              multi-process entry point as 4 worker processes (this script
+              with ``--tp-worker``, ``LOCAL_RANK=0`` so every rank takes
+              the card) joined in a gloo group (NCCL refuses two ranks on
+              one device; every time printed carries ``backend gloo (one
+              card, host-staged)``: no NCCL speed), each held against the
+              same entry point in this process: ``predict.main --mesh
+              data=1,model=4 --denoise`` on phase 8's files (1 predicted
+              frame; 8 clips, whose 512px VAE mid block splits its batch
+              over the ranks, and 3 clips, which take the ring), predicted
+              latents and frames; ``predict_fvd.main --mesh data=4``
+              (``fvd_native_ar4``), FVD, MSE and the real clips'
+              statistics; ``train/trainer.main --mesh data=2,model=2``
+              from phase 9's frame cache at the flagship's widths, f32, 3
+              steps, dropout 0 (losses and the gathered checkpoint against
+              one process) and 0.1 (replicated parameters bit-equal on
+              every rank). Launches per rank exact (the ring's calls run
+              no kernel), every per-rank kernel signature held against the
+              plain version in bf16 and f32, the bodies those of phase 8
+ 11. profile  only with ``--profile``: one warm batch of four paths under
               torch.profiler, device time bucketed by kernel name; the two
               unprofiled batches of every path, whose walls give the idle
               share, all run before the first trace
- 11. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 12. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -142,6 +161,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -1609,18 +1629,7 @@ def data_files(workdir) -> dict:
                  text_cache=os.path.join(workdir, "text_cache"),
                  checkpoints=os.path.join(workdir, "checkpoints"))
     np.save(files["mnist"], mnist)
-
-    def value(v):
-        # YAML 1.1 reads 1e-05 as a string: floats in exponent form need a
-        # mantissa with a point (1.0e-05) for both JSON and PyYAML
-        if isinstance(v, list):
-            return "[" + ", ".join(value(x) for x in v) + "]"
-        if isinstance(v, float) and "e" in repr(v):
-            return f"{v:.1e}"
-        return json.dumps(v)
-    with open(os.path.join(workdir, DATA_CONFIG + ".yml"), "w") as f:
-        f.write("{" + ", ".join(f"{json.dumps(k)}: {value(v)}"
-                                for k, v in DATA_YML.items()) + "}")
+    write_config(os.path.join(workdir, DATA_CONFIG + ".yml"), DATA_YML)
     return files
 
 
@@ -1867,6 +1876,429 @@ def phase_data(workdir) -> dict:
     return window.launches
 
 
+# The tp phase (phase 10): the three multi-process entry points as four
+# worker processes on the one card (this script again, ``--tp-worker``),
+# joined in a gloo group (NCCL refuses two ranks on one device; gloo stages
+# its collectives of CUDA tensors through host memory, the port's ring
+# exchange does so itself), each held against the same entry point in this
+# process. ``predict`` is ``predict_cli_denoise_ar4`` cut to 1 predicted
+# frame: 8 clips (the VAE mid block's batch of 8 splits over the 4 ranks)
+# and 3 clips (3 does not divide by 4: the 512px mid block takes the ring,
+# 4096 / 4 = 1024 tokens a rank); ``fvd`` is ``fvd_native_ar4`` over the
+# data axis; ``train`` is ``train_flagship``'s model at published widths
+# from the data phase's frame cache, f32, 3 steps, dropout 0 and again 0.1.
+TP_WORLD, TP_BACKEND = 4, "backend gloo (one card, host-staged)"
+TP_TIMEOUT = 420                           # seconds, a set of four workers
+TP_RUNS = [
+    dict(name="tp_predict_denoise_8", entry="predict",
+         mesh="data=1,model=4", clips=8, route="batch"),
+    dict(name="tp_predict_denoise_3", entry="predict",
+         mesh="data=1,model=4", clips=3, route="ring"),
+    dict(name="tp_fvd_native", entry="fvd", mesh="data=4"),
+    dict(name="tp_train_flagship", entry="train", mesh="data=2,model=2",
+         config="tp_flagship"),
+    dict(name="tp_train_flagship_dropout", entry="train",
+         mesh="data=2,model=2", config="tp_flagship_dropout")]
+# Bounds against the one-process run of the same entry point on the card.
+# predict (bf16): each split layer's output is the sum of bf16 partial
+# products, rounded once more per rank, so the run's bf16 rounding differs
+# from one process's from the first split layer on and the refiner's uint8
+# round trips carry it on (the one-process run's own bf16 distance from f32
+# is the scale: phase 6's floors are 1-4e-2 a pass). Held against the same
+# entry point in f32 in one process: the tensor-parallel bf16 run no
+# farther from it than TP_PREDICT_OVER_BF16 times the one-process bf16
+# run (predicted latents and decoded frames, relative L2).
+TP_PREDICT_OVER_BF16 = 2.0
+# fvd (data=4): I3D in f32 on 2 clips a rank instead of 8: the real clips'
+# statistics differ in summation order only; the generated clips come
+# from the bf16 refiner at another batch size (cuBLAS and cuDNN may pick
+# other algorithms), so FVD and MSE move with it.
+TP_REAL_STATS_RTOL = 1e-5
+TP_FVD_RTOL, TP_MSE_RTOL = 5e-2, 2e-2
+# train (f32, TF32 off, 3 Adam steps): every step's loss components
+# relative; the moments after the first step relative L2 per tensor
+# (summation order only); after the last, every parameter within 2 lr a
+# step (Adam's first steps move each element by about lr, so where a
+# gradient is rounding noise the two runs step apart by up to 2 lr) and the
+# moments within TP_LAST_MOMENT_REL_L2 (the later gradients are taken at
+# those parted parameters).
+TP_LOSS_RTOL, TP_MOMENT_REL_L2, TP_LAST_MOMENT_REL_L2 = 1e-4, 1e-4, 5e-2
+
+
+def _yml_value(v) -> str:
+    """YAML 1.1 reads 1e-05 as a string: floats in exponent form need a
+    mantissa with a point (1.0e-05) for both JSON and PyYAML."""
+    if isinstance(v, list):
+        return "[" + ", ".join(_yml_value(x) for x in v) + "]"
+    if isinstance(v, float) and "e" in repr(v):
+        return f"{v:.1e}"
+    return json.dumps(v)
+
+
+def write_config(path: str, values: dict) -> None:
+    with open(path, "w") as f:
+        f.write("{" + ", ".join(f"{json.dumps(k)}: {_yml_value(v)}"
+                                for k, v in values.items()) + "}")
+
+
+def tp_argv(run, files, data_dir) -> list:
+    """The entry point's command line; the mesh comes on top."""
+    if run["entry"] == "predict":
+        path = dict(EVAL_PATHS[1], pred=1)
+        return eval_argv(files, path, clips=run["clips"])
+    if run["entry"] == "fvd":
+        return eval_argv(files, EVAL_PATHS[0])
+    return ["--dataset", "mnist", "--config", run["config"], "--config_dir",
+            data_dir, "--native_cache", os.path.join(data_dir, "frame_cache"),
+            "--codec", "pixel", "--precision", "f32", "--checkpoint_dir",
+            os.path.join(os.getcwd(), "checkpoints"), "--debug", "True"]
+
+
+def tp_entry(run, argv):
+    """Drive ``run``'s entry point in this process with spies on what it
+    computes: (its return value, what the spies saw)."""
+    from sd_video_gen_tpu_torch.evaluation import predict_fvd as PPF
+    seen = collections.defaultdict(list)
+    real = (P.make_predict_fn, P.build_codec, PPF.make_sharded_features,
+            Trainer.fit)
+
+    def make(*a, **kw):
+        fn = real[0](*a, **kw)
+
+        def run_(*b, **kwb):
+            out = fn(*b, **kwb)
+            seen["latents"].append(out[1].float().cpu())
+            return out
+        return run_
+
+    def codec(*a, **kw):
+        c = real[1](*a, **kw)
+        decode = c.decode_latents
+
+        def dec(x):
+            out = decode(x)
+            seen["frames"].append(out.cpu())
+            return out
+        c.decode_latents = dec
+        return c
+
+    def stats(i3d, layout):
+        fn = real[2](i3d, layout)
+
+        def run_(v):
+            st = fn(v)
+            seen["stats"].append((st.n, st.raw_sum, st.raw_prod))
+            return st
+        return run_
+
+    def fit(self, *a, **kw):
+        seen["trainer"].append(self)
+        if self.state is None:            # as fit itself would
+            self.init_state(seed=kw.get("seed", 0))
+        step_fn = self._step_fn
+
+        def step(*b):
+            state, comps = step_fn(*b)
+            seen["steps"].append({k: float(v) for k, v in comps.items()})
+            if len(seen["steps"]) == 1:     # every rank gathers, one keeps
+                full = self.full_state()
+                if multihost.is_coordinator():
+                    seen["first"] = {t: {k: v.cpu() for k, v in
+                                         full[t].items()}
+                                     for t in ("mu", "nu")}
+            return state, comps
+        self._step_fn = step
+        return real[3](self, *a, **kw)
+    P.make_predict_fn, P.build_codec = make, codec
+    PPF.make_sharded_features, Trainer.fit = stats, fit
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            main = {"predict": P.main, "fvd": PPF.main,
+                    "train": T.main}[run["entry"]]
+            ret = main(argv)
+    finally:
+        P.make_predict_fn, P.build_codec = real[:2]
+        PPF.make_sharded_features, Trainer.fit = real[2:]
+    seen["lines"] = out.getvalue().splitlines()
+    return ret, seen
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _train_result(ret, seen) -> dict:
+    """What a training run leaves to compare: the history, the saved
+    (gathered) checkpoint's path, digests of this rank's own parameters."""
+    (trainer,) = seen.pop("trainer")
+    return dict(history=ret, steps=seen["steps"], first=seen.get("first"),
+                checkpoint=checkpoint_path(
+                    trainer.checkpoint_dir, trainer.cfg.config_name,
+                    trainer.index, "test"),
+                digests={k: (_digest(p), trainer.placements[k] is not None)
+                         for k, p in trainer.state.params.items()})
+
+
+def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
+    """One rank of a tp run: joins the gloo group on this card (LOCAL_RANK
+    is 0 in every worker), drives the entry point under the mesh with the
+    counts at 0, and saves what it saw, its launches and the kernel
+    signatures it handed the dispatchers."""
+    from sd_video_gen_tpu_torch.ops.attention import TP_ROUTES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(job) as f:
+        run, argv = json.load(f)
+    multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
+                         device="cuda", backend="gloo")
+    if multihost.rank_device(torch.device("cuda")) != torch.device("cuda", 0):
+        raise AssertionError("a worker left the one card")
+    argv = argv + ["--mesh", run["mesh"]]
+    TP_ROUTES.clear()
+    t0 = time.perf_counter()
+    with launch_window() as window, _kernels.record_calls() as rec:
+        ret, seen = tp_entry(run, argv)
+    res = dict(seconds=time.perf_counter() - t0, launches=window.launches,
+               bodies=window.bodies, gn_bodies=window.gn_bodies,
+               routes=dict(TP_ROUTES), sigs=dict(rec.calls),
+               backend=torch.distributed.get_backend(), lines=seen["lines"])
+    if run["entry"] == "train":
+        res.update(_train_result(ret, seen))
+    else:
+        res.update(ret=ret, **{k: v for k, v in seen.items()
+                               if k != "lines"})
+    torch.save(res, out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_tp_workers(run, argv, workdir) -> list:
+    """``run`` as TP_WORLD worker processes on the one card; their results
+    by rank. A worker that fails or outlives TP_TIMEOUT ends the phase,
+    every worker stopped."""
+    job = os.path.join(workdir, f"{run['name']}.json")
+    with open(job, "w") as f:
+        json.dump([run, argv], f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, LOCAL_RANK="0")
+    outs = [os.path.join(workdir, f"{run['name']}_rank{r}.pt")
+            for r in range(TP_WORLD)]
+    logs = [open(os.path.join(workdir, f"{run['name']}_rank{r}.log"), "w")
+            for r in range(TP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         str(TP_WORLD), str(port), job, outs[r]], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=workdir) for r in range(TP_WORLD)]
+    end = time.monotonic() + TP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(logs[bad[0]].name) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"{run['name']}: workers {bad} failed "
+                             f"({[p.returncode for p in procs]}); rank "
+                             f"{bad[0]}:\n{tail}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _rel(a, b) -> float:
+    a, b = (torch.as_tensor(x).double() for x in (a, b))
+    return float((a - b).norm() / b.norm())
+
+
+def check_tp_predict(run, ranks, one, one32, expected) -> None:
+    """Every rank's latents and frames against the one-process runs' in
+    bf16 and f32; launches per rank exact (the ring's calls run no kernel),
+    the route."""
+    cat = lambda res, k: torch.cat(res[k]).float()
+    floor = {k: _rel(cat(one, k), cat(one32, k)) for k in ("latents",
+                                                           "frames")}
+    for r, res in enumerate(ranks):
+        got = {k: _rel(cat(res, k), cat(one32, k)) for k in floor}
+        same = {k: _rel(cat(res, k), cat(one, k)) for k in floor}
+        log(f"{run['name']}: rank {r}, rel L2 against one process in f32 "
+            f"(one process in bf16 / this rank): predicted latents "
+            f"{floor['latents']:.3e} / {got['latents']:.3e}, decoded frames "
+            f"{floor['frames']:.3e} / {got['frames']:.3e} (bound "
+            f"{TP_PREDICT_OVER_BF16}x the first); against one process in "
+            f"bf16: {same['latents']:.3e}, {same['frames']:.3e}; routes "
+            f"{res['routes']}")
+        if not all(got[k] <= TP_PREDICT_OVER_BF16 * floor[k] for k in got):
+            raise AssertionError(f"{run['name']}: rank {r} disagrees")
+        if res["routes"].get(run["route"], 0) == 0:
+            raise AssertionError(f"{run['name']}: the {run['route']} route "
+                                 f"did not run: {res['routes']}")
+        want = dict(expected,
+                    flash_attention=expected["flash_attention"]
+                    - res["routes"].get("ring", 0))
+        _check_worker_launches(run, r, res, want)
+
+
+def _check_worker_launches(run, r, res, want, flash_body="wgmma"):
+    launches = res["launches"]
+    if (launches != want
+            or res["gn_bodies"].get("nhwc", 0) != launches["groupnorm_silu"]
+            or res["bodies"].get(flash_body, 0)
+            != launches["flash_attention"]):
+        raise AssertionError(f"{run['name']}: rank {r} launches {launches} "
+                             f"(bodies {res['bodies']} {res['gn_bodies']}), "
+                             f"the path implies {want}")
+
+
+def check_tp_fvd(run, ranks, one, expected) -> None:
+    fvd1, mse1 = one["ret"]
+    real_one = one["stats"][0::2]
+    for r, res in enumerate(ranks):
+        fvd, mse = res["ret"]
+        real = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                                / np.maximum(np.abs(np.asarray(b)), 1e-30)))
+                   for st, st1 in zip(res["stats"][0::2], real_one)
+                   for a, b in zip(st, st1))
+        log(f"{run['name']}: rank {r}: FVD {fvd:.6f} vs {fvd1:.6f} (rtol "
+            f"{TP_FVD_RTOL}), MSE {mse:.6f} vs {mse1:.6f} (rtol "
+            f"{TP_MSE_RTOL}), real clips' FeatureStats max rel diff "
+            f"{real:.3e} (rtol {TP_REAL_STATS_RTOL}), summed over the data "
+            f"axis")
+        if not (abs(fvd - fvd1) <= TP_FVD_RTOL * abs(fvd1)
+                and abs(mse - mse1) <= TP_MSE_RTOL * abs(mse1)
+                and real <= TP_REAL_STATS_RTOL
+                and len(res["stats"]) == len(one["stats"])):
+            raise AssertionError(f"{run['name']}: rank {r} disagrees")
+        _check_worker_launches(run, r, res, expected)
+
+
+def _states(path_a, path_b):
+    return (torch.load(os.path.join(p, "state.pt"), map_location="cpu",
+                       mmap=True, weights_only=True) for p in (path_a, path_b))
+
+
+def check_tp_train(run, ranks, one, lr: float) -> None:
+    """Losses and the gathered state against one process (dropout 0), or
+    the replicated parameters bit-equal across the model ranks (dropout
+    on)."""
+    digests = [res["digests"] for res in ranks]
+    whole = [k for k, (_, split) in digests[0].items() if not split]
+    same = all(d[k][0] == digests[0][k][0] for d in digests for k in whole)
+    split = [k for k, (_, s) in digests[0].items() if s]
+    log(f"{run['name']}: {len(whole)} replicated parameters "
+        f"{'bit-equal' if same else 'DIFFER'} on all {TP_WORLD} ranks, "
+        f"{len(split)} split over the model axis")
+    if not same or not split:
+        raise AssertionError(f"{run['name']}: replicated parameters drift")
+    for res in ranks:
+        _check_worker_launches(run, 0, res, {k: 0 for k in KERNELS})
+    if one is None:
+        return
+    # a step's components are each data rank's own (its rows' means):
+    # their mean is the global batch's (equal rows), one per model group
+    model = int(dict(a.split("=") for a in run["mesh"].split(","))["model"])
+    by_data = [res["steps"] for res in ranks[::model]]
+    got = [{k: sum(d[i][k] for d in by_data) / len(by_data) for k in w}
+           for i, w in enumerate(one["steps"][:len(by_data[0])])]
+    want = one["steps"]
+    losses = [max(abs(g[k] - w[k]) / abs(w[k]) for k in w if w[k])
+              for g, w in zip(got, want)]
+    steps = len(want)
+
+    def worst(a, b, trees):
+        """(worst relative L2, its tensor) of each tree."""
+        return {t: max((_rel(a[t][k], v), k) for k, v in b[t].items())
+                for t in trees}
+    first = worst(ranks[0]["first"], one["first"], ("mu", "nu"))
+    tp_state, one_state = _states(ranks[0]["checkpoint"], one["checkpoint"])
+    last = worst(tp_state, one_state, ("mu", "nu"))
+    params = max(float((tp_state["params"][k] - v).abs().max())
+                 for k, v in one_state["params"].items())
+    log(f"{run['name']}: {len(got)} / {steps} steps; each step's loss "
+        f"components, worst rel diff {['%.2e' % x for x in losses]} (rtol "
+        f"{TP_LOSS_RTOL}); after step 1 (the gathered moments) worst rel L2 "
+        f"mu {first['mu'][0]:.3e} ({first['mu'][1]}), nu "
+        f"{first['nu'][0]:.3e} ({first['nu'][1]}) (bound "
+        f"{TP_MOMENT_REL_L2}); the gathered checkpoint after step {steps}: "
+        f"mu {last['mu'][0]:.3e} ({last['mu'][1]}), nu {last['nu'][0]:.3e} "
+        f"({last['nu'][1]}) (bound {TP_LAST_MOMENT_REL_L2}), parameters "
+        f"worst |diff| {params:.3e} (bound {2 * lr * steps:.1e})")
+    if (len(got) != steps or tp_state["step"] != one_state["step"] or
+            max(losses) > TP_LOSS_RTOL or
+            max(first[t][0] for t in first) > TP_MOMENT_REL_L2 or
+            max(last[t][0] for t in last) > TP_LAST_MOMENT_REL_L2 or
+            params > 2 * lr * steps * 1.001):
+        raise AssertionError(f"{run['name']}: the gathered state differs")
+
+
+def phase_tp(models, files, data_dir, workdir) -> dict:
+    """The tp runs, each against its one-process run; every per-rank kernel
+    signature against the plain version; returns the workers' launches."""
+    t0 = time.perf_counter()
+    for name, p in (("tp_flagship", 0.0), ("tp_flagship_dropout", 0.1)):
+        write_config(os.path.join(data_dir, name + ".yml"),
+                     dict(DATA_YML, EPOCH_RATIO=[0.25], DROPOUT_P=[p]))
+    total = {k: 0 for k in KERNELS}
+    sigs = collections.Counter()
+    for run in TP_RUNS:
+        d = os.path.join(workdir, run["name"])
+        os.makedirs(d)
+        with contextlib.chdir(d):
+            argv = tp_argv(run, files, data_dir)
+            one = one32 = None
+            if run["entry"] == "predict":
+                with launch_window():
+                    one32 = dict(zip(("ret", "seen"), tp_entry(
+                        run, argv + ["--denoise_precision", "f32"])))["seen"]
+            if run["name"] != "tp_train_flagship_dropout":
+                t1 = time.perf_counter()
+                with launch_window():
+                    ret, seen = tp_entry(run, argv)
+                one = (_train_result(ret, seen) if run["entry"] == "train"
+                       else dict(ret=ret, **seen))
+                one_s = time.perf_counter() - t1
+                gc.collect()
+                torch.cuda.empty_cache()
+            ranks = run_tp_workers(run, argv, d)
+        secs = max(r["seconds"] for r in ranks)
+        log(f"{run['name']}: --mesh {run['mesh']}, {TP_WORLD} ranks on one "
+            f"card: {secs:.1f} s a rank" + (f", one process {one_s:.1f} s"
+                                             if one is not None else "")
+            + f" ({TP_BACKEND})")
+        if any(r["backend"] != "gloo" for r in ranks):
+            raise AssertionError(f"{run['name']}: not a gloo group")
+        if run["entry"] == "predict":
+            expected = expected_launches(models, dict(EVAL_PATHS[1], pred=1),
+                                         1)
+            check_tp_predict(run, ranks, one, one32, expected)
+        elif run["entry"] == "fvd":
+            # each rank runs every pass of the path on its slice
+            check_tp_fvd(run, ranks, one,
+                         expected_launches(models, EVAL_PATHS[0], 2))
+        else:
+            check_tp_train(run, ranks, one, DATA_YML["LR"][0])
+            # the f32 flagship's whole states (5.3 GB each) leave the disk
+            for res in ranks[:1] + ([one] if one else []):
+                shutil.rmtree(res["checkpoint"])
+        for res in ranks:
+            sigs.update(res["sigs"])
+            for k in KERNELS:
+                total[k] += res["launches"][k]
+    rows = check_signatures(sigs, (torch.bfloat16, torch.float32),
+                            what="tp per-rank: ")
+    log(f"tp: {len(rows)} kernel rows at the per-rank shapes agree; "
+        f"launches of the {TP_WORLD}-rank runs {total}; "
+        f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
+    return total
+
 # Device-time buckets of the profile, by kernel name; the first match wins.
 PROFILE_BUCKETS = (
     ("K1 flash attention", ("flash_fwd",)),
@@ -2039,11 +2471,14 @@ def main() -> int:
                              "every shape of the 512px refiner paths")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one warm batch of four paths")
+    parser.add_argument("--tp-worker", nargs=5, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.tp_worker:
+        return tp_worker(*args.tp_worker)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2073,9 +2508,12 @@ def main() -> int:
             os.makedirs(data_dir)
             with contextlib.chdir(data_dir):      # the trainer logs to ./logs
                 data_launches = phase_data(data_dir)
+            tp_dir = os.path.join(workdir, "tp")
+            os.makedirs(tp_dir)
+            tp_launches = phase_tp(models, files, data_dir, tp_dir)
             for k in KERNELS:
                 launches[k] += (train_launches[k] + eval_launches[k]
-                                + data_launches[k])
+                                + data_launches[k] + tp_launches[k])
             if args.profile:
                 phase_profile(models)
             if args.tune:

@@ -267,19 +267,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-# What a multi-device flag still waits for: data parallelism across
-# processes is ported (``parallel/``); splitting a model across devices is not.
-MULTI_DEVICE = ("the tensor-parallel half of the multi-device port (ROADMAP "
-                "queue 1, item 5: sharding rules, ring attention, sharded "
-                "predict and FVD)")
-
-
-def not_ported(flag: str, needs: str):
-    """Raise for a flag whose feature the port does not have yet, naming
-    what it needs."""
-    raise NotImplementedError(
-        f"{flag} is not ported to sd_video_gen_tpu_torch yet: it needs "
-        f"{needs}")
+def add_multihost_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags that join a run of one process per device
+    (``parallel/multihost.initialize``), shared by the trainer and the
+    predict and FVD CLIs."""
+    p.add_argument("--multihost", action="store_true",
+                   help="join a run of one process per device "
+                        "(torch.distributed: NCCL on the card, gloo on the "
+                        "CPU); --mesh lays the processes out")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="rank 0's host:port (torchrun's MASTER_ADDR / "
+                        "MASTER_PORT where absent)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    return p
 
 
 def add_device_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:

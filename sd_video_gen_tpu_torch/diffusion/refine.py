@@ -18,6 +18,9 @@ Noise: the JAX package draws from ``fold_in(PRNGKey(start_step), step)``,
 which torch cannot reproduce. Here ``noise_fn(step, shape)`` gives the NHWC
 noise of a rollout step; the default draws it from a ``torch.Generator`` on
 the device seeded from (start_step, step). Tests pass JAX's exact noise.
+A data-parallel caller wraps it in ``windowed_noise``: each process draws
+the whole global batch's noise and keeps its rows, so the run refines every
+clip with the noise a single process would give it.
 """
 
 from __future__ import annotations
@@ -46,6 +49,29 @@ def default_noise(start_step: int, device) -> Callable:
         # 16 bits each: the CPU generator keeps only a 32-bit seed
         g.manual_seed((start_step << 16) | int(step))
         return torch.randn(shape, generator=g, device=device)
+    return draw
+
+
+class BatchWindow:
+    """The rows [lo, hi) of an ``n``-row global batch this process holds
+    (``parallel/mesh.Layout.rows``), set by the caller before each batch."""
+
+    def __init__(self):
+        self.lo = self.hi = self.n = 0
+
+    def set(self, lo: int, hi: int, n: int) -> None:
+        self.lo, self.hi, self.n = lo, hi, n
+
+
+def windowed_noise(noise_fn: Callable, window: BatchWindow) -> Callable:
+    """``noise_fn``'s draw for the whole global batch, cut to the rows of
+    ``window``."""
+    def draw(step: int, shape) -> torch.Tensor:
+        if shape[0] != window.hi - window.lo:
+            raise ValueError(f"noise for {shape[0]} rows, but the window "
+                             f"holds [{window.lo}, {window.hi})")
+        whole = noise_fn(step, (window.n,) + tuple(shape[1:]))
+        return whole[window.lo:window.hi]
     return draw
 
 

@@ -414,10 +414,16 @@ def load_weights(module: torch.nn.Module, kind: str, source):
 
 
 def build_from_file(module_cls, cfg, kind: str, path, device=None,
-                    dtype=torch.float32, seed: int = 0):
+                    dtype=torch.float32, seed: int = 0, shard=None):
     """``models.build(module_cls, cfg, device, dtype, seed)`` filled from
     the weight file at ``path`` through ``load_weights``; with ``path=None``
-    the seeded random weights stay."""
-    from sd_video_gen_tpu_torch.models import build
+    the seeded random weights stay. With ``shard`` (a tensor-parallel rank,
+    ``parallel/mesh.ModelShard``), that rank's slice of the filled model
+    (``models.shard_module``)."""
+    from sd_video_gen_tpu_torch.models import build, shard_module
     module = build(module_cls, cfg, device, dtype, seed)
-    return load_weights(module, kind, path) if path else module
+    if path:
+        load_weights(module, kind, path)
+    if shard is not None and shard.size > 1:
+        return shard_module(module, shard)
+    return module

@@ -20,12 +20,22 @@ pixels, into the generated ones. FVD prints every --fvd_every batches and at
 the end, with the pixel MSE of the predicted frames. I3D runs in full f32
 (``models/i3d.py``). With ``--denoise`` the codec shares the refiner's VAE at
 ``--denoise_precision``. ``--timing`` prints, per batch, the rollout and I3D
-walls with the device synchronised at their ends. ``--mesh`` raises:
-multi-device is not ported.
+walls with the device synchronised at their ends.
+
+Across processes (``--multihost``, or torchrun; one per device), laid out
+by ``--mesh`` (``parallel/mesh.py``; the streaming API only, as in the JAX
+CLI): each data rank rolls out and runs I3D on its slice of every batch,
+and the ``FeatureStats`` sums and the MSE sums are summed over the ``data``
+group (``make_sharded_features``, the JAX package's shard_map + psum); a
+ragged tail batch is trimmed to a multiple of the data axis. The refiner's
+noise is drawn for the whole batch and cut to the rank's rows, as in the
+predict CLI; the refiner is not split over a model axis (nor is it in the
+JAX CLI). Rank 0 alone prints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 import warnings
@@ -33,14 +43,14 @@ import warnings
 import numpy as np
 import torch
 
-from sd_video_gen_tpu_torch.config import (MULTI_DEVICE, build_arg_parser,
-                                           load_config, not_ported)
+from sd_video_gen_tpu_torch.config import build_arg_parser, load_config
 from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats, compute_fvd,
                                                    frechet_distance,
                                                    preprocess_videos)
 from sd_video_gen_tpu_torch.models import default_device
 from sd_video_gen_tpu_torch.models.i3d import (I3DConfig, InceptionI3d,
                                                convert_i3d)
+from sd_video_gen_tpu_torch.parallel import multihost
 
 I3D_SEED = 0
 
@@ -78,8 +88,24 @@ def load_i3d(weights_path: str | None, device=None) -> InceptionI3d:
     return i3d.eval().requires_grad_(False)
 
 
-def make_sharded_features(i3d, mesh):
-    not_ported("make_sharded_features", MULTI_DEVICE)
+def make_sharded_features(i3d, layout):
+    """Data-parallel I3D features: ``fn(videos_u8)`` -> the ``FeatureStats``
+    of the whole global batch, from this data rank's slice of it
+    (``videos_u8``, (b, T, H, W, 3) uint8): I3D on the slice, its (n, sum,
+    sum of outer products) in f64 summed over ``layout``'s data group, so
+    every rank holds the global statistics (the JAX package's shard_map +
+    psum over ``data``)."""
+    def features_stats(videos_u8):
+        st = FeatureStats(400).append(i3d(preprocess_videos(videos_u8)))
+        if layout.data == 1:
+            return st
+        device = videos_u8.device
+        parts = [torch.as_tensor(np.asarray(a, np.float64), device=device)
+                 for a in (st.n, st.raw_sum, st.raw_prod)]
+        multihost.all_reduce_sum(parts, "fvd_stats", layout.data_group)
+        n, raw_sum, raw_prod = (p.cpu().numpy() for p in parts)
+        return FeatureStats(st.dim, np.float64(n), raw_sum, raw_prod)
+    return features_stats
 
 
 def build_parser():
@@ -104,16 +130,19 @@ def build_parser():
 @torch.inference_mode()
 def main(argv=None):
     from sd_video_gen_tpu_torch.data import BatchLoader
+    from sd_video_gen_tpu_torch.diffusion.refine import BatchWindow
     from sd_video_gen_tpu_torch.predict.predict import (build_codec,
                                                         build_embedder,
                                                         build_model,
-                                                        make_predict_fn,
-                                                        sd_modules)
+                                                        build_refiner,
+                                                        join_run,
+                                                        make_predict_fn)
     from sd_video_gen_tpu_torch.train.trainer import build_dataset
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh:
-        not_ported("--mesh", MULTI_DEVICE)
+    if args.mesh and args.fvd_api != "streaming":
+        parser.error("--mesh implies --fvd_api streaming (FeatureStats "
+                     "summed over the data axis)")
     if args.pred_frames <= 1:
         args.pred_frames = 4
     cfg = load_config(args.config, args.config_dir)
@@ -124,23 +153,20 @@ def main(argv=None):
             f"frames_per_clip ({cfg.frames_per_clip}) + pred_frames "
             f"({args.pred_frames}) = {total} < 9, the I3D temporal minimum "
             "— raise --pred_frames or use a config with longer clips")
-    device = default_device(args.device)
+    layout = join_run(parser, args)
+    # the JAX CLI shards only the batch: the refiner stays whole
+    layout = dataclasses.replace(layout, model=1, model_rank=0,
+                                 model_group=None)
+    device = multihost.rank_device(default_device(args.device))
+    lead = multihost.is_coordinator()
+    window = BatchWindow()
 
     refiner, vae = None, None
     if args.denoise:
         # native-resolution partial denoise, the evaluation harness's
         # variant (start step 48, no 512px upscale)
-        from sd_video_gen_tpu_torch.diffusion.refine import (
-            make_denoise_refiner)
-        from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
-        vae, unet, clip = sd_modules(
-            args, device, torch.bfloat16 if args.denoise_precision == "bf16"
-            else torch.float32)
-        refiner = make_denoise_refiner(
-            SDPipeline(vae, unet, clip, tokenizer_dir=args.tokenizer_dir),
-            cfg.frame_size, args.denoise_start_step, hi_res=None,
-            sampler=args.denoise_sampler,
-            solver_steps=args.denoise_solver_steps)
+        refiner, vae = build_refiner(args, cfg, device, layout, window,
+                                     hi_res=None)
     codec = build_codec(cfg, args, device, vae)
     model = build_model(cfg, args, device)
     i3d = load_i3d(args.i3d_weights, device)
@@ -157,6 +183,8 @@ def main(argv=None):
 
     def features(videos_u8):
         return i3d(preprocess_videos(videos_u8))
+
+    stats = make_sharded_features(i3d, layout)
 
     def gen_video(context_frames, indices):
         """context uint8 -> [context + decoded predictions] uint8 video."""
@@ -190,29 +218,49 @@ def main(argv=None):
     for bi, (indices, frames) in enumerate(loader):
         if n_clips >= args.max_clips:
             break
+        n = len(frames)
+        if n % layout.data:
+            # ragged tail under a data axis: trim to a shardable size
+            # instead of failing after most clips were processed
+            keep = (n // layout.data) * layout.data
+            if lead:
+                print(f"[mesh] trimming ragged tail batch {n} -> {keep} "
+                      f"(data axis {layout.data})")
+            if keep == 0:
+                continue
+            n = keep
+        lo, hi = layout.rows(n)            # this data rank's rows
+        window.set(lo, hi, n)
         t0 = time.perf_counter()
-        frames = torch.from_numpy(np.asarray(frames)).to(device)
-        gen = gen_video(frames[:, :F], indices)
+        frames = torch.from_numpy(np.asarray(frames[lo:hi])).to(device)
+        gen = gen_video(frames[:, :F], list(indices)[lo:hi])
         diff = (gen[:, F:].float() - frames[:, F:].float()) / 255.0
         mse_sum += float(torch.sum(diff * diff))
         mse_n += diff.numel()
         t1 = time.perf_counter()
         if args.fvd_api == "streaming":
-            st_real = st_real.append(features(frames))
-            st_gen = st_gen.append(features(gen))
+            st_real = st_real.merge(stats(frames))
+            st_gen = st_gen.merge(stats(gen))
         else:
             logits_real.append(features(frames).cpu().numpy())
             logits_gen.append(features(gen).cpu().numpy())
         t2 = time.perf_counter()
         walls.append({"clips": int(frames.shape[0]),
                       "gen_s": round(t1 - t0, 4), "i3d_s": round(t2 - t1, 4)})
-        n_clips += frames.shape[0]
-        if (bi + 1) % args.fvd_every == 0:
+        n_clips += n
+        if (bi + 1) % args.fvd_every == 0 and lead:
             print(f"[{n_clips} clips] FVD so far: "
                   f"{_fvd(args, st_real, st_gen, logits_real, logits_gen):.3f}")
 
     fvd = _fvd(args, st_real, st_gen, logits_real, logits_gen)
+    if layout.data > 1:
+        sums = torch.tensor([mse_sum, mse_n], dtype=torch.float64,
+                            device=device)
+        multihost.all_reduce_sum([sums], "mse", layout.data_group)
+        mse_sum, mse_n = sums.tolist()
     mse = mse_sum / max(mse_n, 1)
+    if not lead:
+        return fvd, mse
     print(f"FVD ({args.fvd_api}, {n_clips} clips): {fvd:.3f}  "
           f"pred MSE: {mse:.5f}")
     if args.timing:

@@ -35,6 +35,20 @@ state_dict (``transformer.encoder.layers.0.self_attn.in_proj_weight``,
 ``project_image_embedding`` in place of ``embedding`` in text mode),
 so its checkpoints map one to one. Sequences are <= 16 frame tokens: the
 attention here is plain PyTorch.
+
+Tensor parallelism (``shard``, a ``parallel.mesh.ModelShard`` of size > 1;
+the rules of ``parallel/sharding.py``): every attention layer holds its
+rank's heads (its rows of each of the q, k and v thirds of
+``in_proj_weight``) and ``out_proj`` sums them over the model group; the
+feed-forward holds its rank's hidden features (``linear1`` column-, ``linear2``
+row-parallel); embeddings, norms and the output head are whole on every
+rank, on the replicated residual stream. Dropout there acts on replicated
+activations, so its masks must be the same on every rank of the model
+group: they come from ``generator``. The dropout on the attention weights
+and on the feed-forward's hidden features acts on this rank's heads and
+features: those masks come from ``local_generator``, which the trainer
+seeds per model rank. Without a shard both are one generator and the
+model is the plain one.
 """
 
 from __future__ import annotations
@@ -47,6 +61,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.models.positional import sinusoidal_positions
+from sd_video_gen_tpu_torch.parallel.constrain import (copy_to_model,
+                                                       row_parallel)
+from sd_video_gen_tpu_torch.parallel.sharding import check_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +122,14 @@ class FrameTransformerConfig:
 
 class _Ctx:
     """What one forward hands every layer: the compute dtype and the dropout
-    (rate and generator; ``generator=None`` means none is applied)."""
+    (rate and generator; ``generator=None`` means none is applied).
+    ``local`` is the context of the dropout on a model rank's own heads and
+    features: one of its own with ``local_generator``, else this one."""
 
-    def __init__(self, dtype, p: float, generator):
+    def __init__(self, dtype, p: float, generator, local_generator=None):
         self.dtype, self.p, self.generator = dtype, p, generator
+        self.local = (self if local_generator is None
+                      else _Ctx(dtype, p, local_generator))
 
     def drop(self, x):
         """Inverted dropout in x's dtype: zero with probability p, the rest
@@ -123,6 +144,13 @@ class _Ctx:
         dt = self.dtype
         return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
 
+    def row_linear(self, lin: nn.Linear, x, shard):
+        """A row-parallel ``lin`` on this rank's features ``x``: the
+        partial products summed over the model group, then the bias."""
+        dt = self.dtype
+        return row_parallel(F.linear(x.to(dt), lin.weight.to(dt)),
+                            lin.bias.to(dt), shard)
+
 
 def _ln(norm: nn.LayerNorm, x):
     return norm(x.to(norm.weight.dtype))
@@ -131,19 +159,26 @@ def _ln(norm: nn.LayerNorm, x):
 class MultiheadAttention(nn.Module):
     """Fused in-projection (q|k|v rows of ``in_proj_weight``), additive mask."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, shard=None):
         super().__init__()
-        self.heads = heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.shard = shard
+        check_split(shard, f"attention of width {dim}", heads, "head")
+        w = shard.size if shard is not None else 1
+        self.heads = heads // w               # this rank's
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim // w, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim // w))
+        self.out_proj = nn.Linear(dim // w, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, q_in, kv_in, ctx: _Ctx, mask=None):
-        D = q_in.shape[-1]
+        D = self.in_proj_weight.shape[0] // 3      # this rank's heads' width
         dt = ctx.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
-        if q_in is kv_in:
+        self_attn = q_in is kv_in
+        if self.shard is not None:
+            q_in = copy_to_model(q_in, self.shard)
+            kv_in = q_in if self_attn else copy_to_model(kv_in, self.shard)
+        if self_attn:
             q, k, v = F.linear(q_in.to(dt), w, b).chunk(3, dim=-1)
         else:
             q = F.linear(q_in.to(dt), w[:D], b[:D])
@@ -157,23 +192,38 @@ class MultiheadAttention(nn.Module):
         logits = logits / math.sqrt(hd)
         if mask is not None:
             logits = logits + mask.float()
-        weights = ctx.drop(torch.softmax(logits, dim=-1)).to(q.dtype)
+        weights = ctx.local.drop(torch.softmax(logits, dim=-1)).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
-        return ctx.linear(self.out_proj, out.reshape(B, Tq, D))
+        out = out.reshape(B, Tq, D)
+        if self.shard is None:
+            return ctx.linear(self.out_proj, out)
+        return ctx.row_linear(self.out_proj, out, self.shard)
 
 
 def _ffn(layer, x, ctx: _Ctx):
-    h = ctx.drop(F.relu(ctx.linear(layer.linear1, x)))
-    return ctx.linear(layer.linear2, h)
+    if layer.shard is None:
+        h = ctx.local.drop(F.relu(ctx.linear(layer.linear1, x)))
+        return ctx.linear(layer.linear2, h)
+    x = copy_to_model(x, layer.shard)
+    h = ctx.local.drop(F.relu(ctx.linear(layer.linear1, x)))
+    return ctx.row_linear(layer.linear2, h, layer.shard)
+
+
+def _ffn_layers(layer, cfg: "FrameTransformerConfig", shard) -> None:
+    D, F_ = cfg.model_width, cfg.dim_feedforward
+    check_split(shard, "the feed-forward", F_, "hidden feature")
+    w = shard.size if shard is not None else 1
+    layer.shard = shard
+    layer.linear1 = nn.Linear(D, F_ // w)
+    layer.linear2 = nn.Linear(F_ // w, D)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: FrameTransformerConfig):
+    def __init__(self, cfg: FrameTransformerConfig, shard=None):
         super().__init__()
         D = cfg.model_width
-        self.self_attn = MultiheadAttention(D, cfg.num_heads)
-        self.linear1 = nn.Linear(D, cfg.dim_feedforward)
-        self.linear2 = nn.Linear(cfg.dim_feedforward, D)
+        self.self_attn = MultiheadAttention(D, cfg.num_heads, shard)
+        _ffn_layers(self, cfg, shard)
         self.norm1 = nn.LayerNorm(D, eps=1e-5)
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
 
@@ -183,13 +233,12 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: FrameTransformerConfig):
+    def __init__(self, cfg: FrameTransformerConfig, shard=None):
         super().__init__()
         D = cfg.model_width
-        self.self_attn = MultiheadAttention(D, cfg.num_heads)
-        self.multihead_attn = MultiheadAttention(D, cfg.num_heads)
-        self.linear1 = nn.Linear(D, cfg.dim_feedforward)
-        self.linear2 = nn.Linear(cfg.dim_feedforward, D)
+        self.self_attn = MultiheadAttention(D, cfg.num_heads, shard)
+        self.multihead_attn = MultiheadAttention(D, cfg.num_heads, shard)
+        _ffn_layers(self, cfg, shard)
         self.norm1 = nn.LayerNorm(D, eps=1e-5)
         self.norm2 = nn.LayerNorm(D, eps=1e-5)
         self.norm3 = nn.LayerNorm(D, eps=1e-5)
@@ -208,28 +257,35 @@ class _Stack(nn.Module):
 
 
 class _Seq2Seq(nn.Module):
-    def __init__(self, cfg: FrameTransformerConfig):
+    def __init__(self, cfg: FrameTransformerConfig, shard=None):
         super().__init__()
         D = cfg.model_width
-        self.encoder = _Stack([EncoderLayer(cfg)
+        self.encoder = _Stack([EncoderLayer(cfg, shard)
                                for _ in range(cfg.num_encoder_layers)], D)
-        self.decoder = _Stack([DecoderLayer(cfg)
+        self.decoder = _Stack([DecoderLayer(cfg, shard)
                                for _ in range(cfg.num_decoder_layers)], D)
 
 
 class FrameTransformer(nn.Module):
     """Seq2seq encoder-decoder over flattened frame latents, batch-first.
 
-    ``model(src, tgt, tgt_mask=None, text_embeds=None, generator=None)`` ->
-    (B, T_tgt, latent_dim) f32. ``text_embeds`` (B, text_embed_dim) is
-    required in text mode and ignored otherwise; 'learned_tgt' ignores
-    ``tgt`` and decodes its ``frames_to_predict`` queries. In ``train()``
-    mode with ``dropout_p > 0`` the forward needs ``generator`` (on the
-    inputs' device) for its dropout draws; in ``eval()`` mode it is ignored.
+    ``model(src, tgt, tgt_mask=None, text_embeds=None, generator=None,
+    local_generator=None)`` -> (B, T_tgt, latent_dim) f32. ``text_embeds``
+    (B, text_embed_dim) is required in text mode and ignored otherwise;
+    'learned_tgt' ignores ``tgt`` and decodes its ``frames_to_predict``
+    queries. In ``train()`` mode with ``dropout_p > 0`` the forward needs
+    ``generator`` (on the inputs' device) for its dropout draws, and takes
+    the draws on a model rank's own heads and features from
+    ``local_generator`` where one is given (module docstring); in ``eval()``
+    mode both are ignored. ``shard``: this rank's place on the model axis.
     """
 
-    def __init__(self, cfg: FrameTransformerConfig):
+    SHARDING = "transformer"   # its rules in parallel/sharding.py
+
+    def __init__(self, cfg: FrameTransformerConfig, shard=None):
         super().__init__()
+        if shard is not None and shard.size == 1:
+            shard = None
         self.cfg = cfg
         D, L, K = cfg.model_width, cfg.latent_dim, cfg.frames_to_predict
         if cfg.mode == "future":
@@ -241,20 +297,22 @@ class FrameTransformer(nn.Module):
             self.project_image_embedding = nn.Linear(L, cfg.dim_model)
         else:
             self.embedding = nn.Linear(L, D)
-        self.transformer = _Seq2Seq(cfg)
+        self.transformer = _Seq2Seq(cfg, shard)
         self.out = nn.Linear(D, L)
         self.register_buffer("pos_table", sinusoidal_positions(cfg.max_len, D),
                              persistent=False)
 
     def forward(self, src, tgt, tgt_mask=None, text_embeds=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                local_generator: torch.Generator | None = None):
         cfg = self.cfg
         dt = cfg.compute_dtype or self.out.weight.dtype
         dropping = self.training and cfg.dropout_p > 0
         if dropping and generator is None:
             raise ValueError("a train() forward with dropout_p > 0 needs a "
                              "torch.Generator for its dropout draws")
-        ctx = _Ctx(dt, cfg.dropout_p, generator if dropping else None)
+        ctx = _Ctx(dt, cfg.dropout_p, generator if dropping else None,
+                   local_generator if dropping else None)
         scale = math.sqrt(cfg.model_width)
         if cfg.mode == "learned_tgt":
             q = self.norm(torch.zeros_like(self.query_pos)) + self.query_pos

@@ -17,6 +17,21 @@ card (see ``models/vae.py``): the skip concatenation, the time-embedding
 add, nearest upsampling and the 1x1 projections keep it, and a
 ``Transformer2D``'s token sequence (B, HW, C) is a view of it both ways.
 Nothing on that path may call ``.contiguous()`` without a memory format.
+
+Tensor parallelism: built with ``shard`` (a ``parallel.mesh.ModelShard``
+of size > 1), the model holds one rank's slice of every split weight
+(``parallel/sharding.py``) and runs the Megatron pairs with the collectives
+of ``parallel/constrain.py``: each resnet's ``conv1`` and ``time_emb_proj``
+make this rank's channels, ``norm2`` normalises them (its groups split with
+them, so the GroupNorm kernel runs on the channel shard) and ``conv2``'s
+partial sums meet in one all-reduce; each attention layer runs this rank's
+heads (the flash kernel on the local (B * heads / size, T, head dim) for
+self-attention) and ``to_out.0`` sums them; the GEGLU feed-forward and the
+time embedding split their hidden features. Everything else runs whole on
+every rank, on the replicated stream. A layer whose split dimension does
+not divide the axis stays whole (the JAX rules' divisibility fallback); a
+split that would cut a head or a GroupNorm group raises. Without a shard,
+or at size 1, the model is the plain one.
 """
 
 from __future__ import annotations
@@ -31,6 +46,9 @@ from torch import nn
 
 from sd_video_gen_tpu_torch.ops.attention import attention
 from sd_video_gen_tpu_torch.ops.groupnorm import group_norm
+from sd_video_gen_tpu_torch.parallel.constrain import (copy_to_model,
+                                                       row_parallel)
+from sd_video_gen_tpu_torch.parallel.sharding import check_split, splits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,34 +87,56 @@ def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
     return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
 
 
+def _width(shard) -> int:
+    return shard.size if shard is not None else 1
+
+
 class TimestepEmbedding(nn.Module):
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, shard=None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.shard = shard = splits(shard, dim)
+        self.linear_1 = nn.Linear(in_dim, dim // _width(shard))
+        self.linear_2 = nn.Linear(dim // _width(shard), dim)
 
     def forward(self, x):
-        return self.linear_2(F.silu(self.linear_1(x)))
+        if self.shard is None:
+            return self.linear_2(F.silu(self.linear_1(x)))
+        h = F.silu(self.linear_1(copy_to_model(x, self.shard)))
+        return row_parallel(F.linear(h, self.linear_2.weight),
+                            self.linear_2.bias, self.shard)
 
 
 class ResnetBlock2D(nn.Module):
     """Resnet block with timestep-embedding injection."""
 
-    def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int):
+    def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int,
+                 shard=None):
         super().__init__()
         g, eps = cfg.norm_num_groups, cfg.norm_eps
+        self.shard = shard = splits(shard, out_ch)
+        check_split(shard, f"resnet of {out_ch} channels", g, "group")
+        w = _width(shard)
         self.norm1 = nn.GroupNorm(g, in_ch, eps=eps)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.time_emb_proj = nn.Linear(cfg.time_embed_dim, out_ch)
-        self.norm2 = nn.GroupNorm(g, out_ch, eps=eps)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv1 = nn.Conv2d(in_ch, out_ch // w, 3, padding=1)
+        self.time_emb_proj = nn.Linear(cfg.time_embed_dim, out_ch // w)
+        self.norm2 = nn.GroupNorm(g // w, out_ch // w, eps=eps)
+        self.conv2 = nn.Conv2d(out_ch // w, out_ch, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
     def forward(self, x, temb):
-        h = self.conv1(group_norm(self.norm1, x, silu=True))
+        h = group_norm(self.norm1, x, silu=True)
+        if self.shard is not None:
+            h, temb = (copy_to_model(t, self.shard) for t in (h, temb))
+        h = self.conv1(h)
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(group_norm(self.norm2, h, silu=True))
+        h = group_norm(self.norm2, h, silu=True)
+        if self.shard is None:
+            h = self.conv2(h)
+        else:
+            h = row_parallel(self.conv2._conv_forward(h, self.conv2.weight,
+                                                      None),
+                             self.conv2.bias, self.shard)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -105,18 +145,27 @@ class ResnetBlock2D(nn.Module):
 class CrossAttention(nn.Module):
     """Multi-head attention; context=None -> spatial self-attention."""
 
-    def __init__(self, query_dim: int, heads: int, context_dim: int | None = None):
+    def __init__(self, query_dim: int, heads: int,
+                 context_dim: int | None = None, shard=None):
         super().__init__()
         ctx = context_dim or query_dim
-        self.heads = heads
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(ctx, query_dim, bias=False)
-        self.to_v = nn.Linear(ctx, query_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.shard = shard = splits(shard, query_dim)
+        check_split(shard, f"attention of width {query_dim}", heads, "head")
+        w = _width(shard)
+        self.heads = heads // w               # this rank's
+        self.to_q = nn.Linear(query_dim, query_dim // w, bias=False)
+        self.to_k = nn.Linear(ctx, query_dim // w, bias=False)
+        self.to_v = nn.Linear(ctx, query_dim // w, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(query_dim // w, query_dim)])
 
     def forward(self, x, context=None):
+        if self.shard is not None:
+            x = copy_to_model(x, self.shard)
+            if context is not None:
+                context = copy_to_model(context, self.shard)
         ctx = x if context is None else context
-        B, Tq, C = x.shape
+        B, Tq, _ = x.shape
+        C = self.to_q.out_features            # this rank's heads' width
         H, hd = self.heads, C // self.heads
 
         def heads(t):  # (B, T, C) -> (B*H, T, hd), contiguous
@@ -131,7 +180,10 @@ class CrossAttention(nn.Module):
         o = attention(heads(self.to_q(x)), heads(self.to_k(ctx)),
                       heads(self.to_v(ctx)), scale=hd ** -0.5)
         o = o.reshape(B, H, Tq, hd).transpose(1, 2).reshape(B, Tq, C)
-        return self.to_out[0](o)
+        if self.shard is None:
+            return self.to_out[0](o)
+        return row_parallel(F.linear(o, self.to_out[0].weight),
+                            self.to_out[0].bias, self.shard)
 
 
 class GEGLU(nn.Module):
@@ -147,28 +199,35 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, shard=None):
         super().__init__()
-        # keys ff.net.0.proj / ff.net.2 (net.1 is a parameter-free dropout)
-        self.net = nn.ModuleList([GEGLU(dim, 4 * dim), nn.Identity(),
-                                  nn.Linear(4 * dim, dim)])
+        self.shard = shard = splits(shard, 4 * dim)
+        w = _width(shard)
+        # keys ff.net.0.proj / ff.net.2 (net.1 is a parameter-free dropout);
+        # split, ff.net.0.proj holds this rank's h rows, then its gate rows
+        self.net = nn.ModuleList([GEGLU(dim, 4 * dim // w), nn.Identity(),
+                                  nn.Linear(4 * dim // w, dim)])
 
     def forward(self, x):
-        for m in self.net:
-            x = m(x)
-        return x
+        if self.shard is None:
+            for m in self.net:
+                x = m(x)
+            return x
+        h = self.net[0](copy_to_model(x, self.shard))
+        return row_parallel(F.linear(h, self.net[2].weight),
+                            self.net[2].bias, self.shard)
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, dim: int):
+    def __init__(self, cfg: UNetConfig, dim: int, shard=None):
         super().__init__()
         H = cfg.attention_heads
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = CrossAttention(dim, H)
+        self.attn1 = CrossAttention(dim, H, shard=shard)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = CrossAttention(dim, H, cfg.cross_attention_dim)
+        self.attn2 = CrossAttention(dim, H, cfg.cross_attention_dim, shard)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, shard)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -179,12 +238,12 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     """GroupNorm -> 1x1 proj_in -> transformer block -> 1x1 proj_out + skip."""
 
-    def __init__(self, cfg: UNetConfig, channels: int):
+    def __init__(self, cfg: UNetConfig, channels: int, shard=None):
         super().__init__()
         self.norm = nn.GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(cfg, channels)])
+            [BasicTransformerBlock(cfg, channels, shard)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x, context):
@@ -230,14 +289,18 @@ class UNetBlock(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    """sample (B, 4, H, W), timesteps (B,), context (B, 77, 768) -> eps (f32)."""
+    """sample (B, 4, H, W), timesteps (B,), context (B, 77, 768) -> eps (f32).
+    ``shard``: this rank's place on the model axis (module docstring)."""
 
-    def __init__(self, cfg: UNetConfig = UNetConfig()):
+    SHARDING = "unet"      # its rules in parallel/sharding.py
+
+    def __init__(self, cfg: UNetConfig = UNetConfig(), shard=None):
         super().__init__()
         self.cfg = cfg
         ch = list(cfg.block_out_channels)
         n = len(ch)
-        self.time_embedding = TimestepEmbedding(ch[0], cfg.time_embed_dim)
+        self.time_embedding = TimestepEmbedding(ch[0], cfg.time_embed_dim,
+                                                shard)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         down, prev = [], ch[0]
@@ -245,10 +308,10 @@ class UNet2DCondition(nn.Module):
         for i in range(n):
             res, att = [], []
             for _ in range(cfg.layers_per_block):
-                res.append(ResnetBlock2D(cfg, prev, ch[i]))
+                res.append(ResnetBlock2D(cfg, prev, ch[i], shard))
                 prev = ch[i]
                 if cfg.down_has_attn(i):
-                    att.append(Transformer2D(cfg, ch[i]))
+                    att.append(Transformer2D(cfg, ch[i], shard))
                 skip_ch.append(ch[i])
             ds = Downsample2D(ch[i]) if i < n - 1 else None
             if ds is not None:
@@ -257,19 +320,20 @@ class UNet2DCondition(nn.Module):
         self.down_blocks = nn.ModuleList(down)
 
         self.mid_block = UNetBlock(
-            [ResnetBlock2D(cfg, ch[-1], ch[-1]),
-             ResnetBlock2D(cfg, ch[-1], ch[-1])],
-            [Transformer2D(cfg, ch[-1])])
+            [ResnetBlock2D(cfg, ch[-1], ch[-1], shard),
+             ResnetBlock2D(cfg, ch[-1], ch[-1], shard)],
+            [Transformer2D(cfg, ch[-1], shard)])
 
         rev = list(reversed(ch))
         up = []
         for i in range(n):
             res, att = [], []
             for _ in range(cfg.layers_per_block + 1):
-                res.append(ResnetBlock2D(cfg, prev + skip_ch.pop(), rev[i]))
+                res.append(ResnetBlock2D(cfg, prev + skip_ch.pop(), rev[i],
+                                         shard))
                 prev = rev[i]
                 if cfg.up_has_attn(i):
-                    att.append(Transformer2D(cfg, rev[i]))
+                    att.append(Transformer2D(cfg, rev[i], shard))
             up.append(UNetBlock(
                 res, att, upsample=Upsample2D(rev[i]) if i < n - 1 else None))
         self.up_blocks = nn.ModuleList(up)

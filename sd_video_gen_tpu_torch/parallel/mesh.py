@@ -1,21 +1,29 @@
-"""Mesh specs for the trainer (``sd_video_gen_tpu/parallel/mesh.py`` mapped
-onto ``torch.distributed``).
+"""The process layout (``sd_video_gen_tpu/parallel/mesh.py`` mapped onto
+``torch.distributed``).
 
 The JAX package builds one ``jax.sharding.Mesh`` with named axes ``data``
 (batch-parallel) and ``model`` (tensor-parallel) over every device of every
 host. torch runs one process per device, so the port's mesh is the process
-group: ``data`` is the number of processes, and ``model`` is 1. Nothing is
-built here: these functions check a spec and a batch against the group and
-return the axes. A spec with ``model > 1`` asks for the tensor-parallel
-rules, which are not ported yet, and raises ``NotImplementedError``; a
-``data`` axis other than the process count raises a ``ValueError`` (start
-one process per device).
+group laid out as a ``data x model`` grid: rank ``r`` is data rank
+``r // model`` and model rank ``r % model``, the order in which the JAX mesh
+reshapes its device list (``np.reshape(devices, (data, model))``), so the
+ranks of one model group are contiguous. ``make_layout`` checks a spec
+against the group and creates the per-axis process groups: the ``model``
+group of a rank holds the ranks that share its slice of every batch and
+split its models (``parallel/sharding.py``, ``parallel/constrain.py``); its
+``data`` group the ranks that hold the same shard of the models, over which
+gradients and statistics are averaged. A spec whose axes do not multiply to
+the process count raises a ``ValueError`` (start one process per device).
 """
 
 from __future__ import annotations
 
-from sd_video_gen_tpu_torch.config import MULTI_DEVICE, not_ported
-from sd_video_gen_tpu_torch.parallel.multihost import process_count
+import dataclasses
+
+import torch.distributed as dist
+
+from sd_video_gen_tpu_torch.parallel.multihost import (process_count,
+                                                       process_index)
 
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
@@ -23,7 +31,7 @@ AXIS_MODEL = "model"
 
 def parse_mesh_spec(spec: str | None,
                     n_devices: int | None = None) -> dict[str, int]:
-    """'data=4,model=1' -> {'data': 4, 'model': 1}; None -> every process on
+    """'data=2,model=2' -> {'data': 2, 'model': 2}; None -> every process on
     data. ``n_devices`` defaults to the process count."""
     n = n_devices if n_devices is not None else process_count()
     if not spec:
@@ -42,10 +50,6 @@ def parse_mesh_spec(spec: str | None,
         out[k] = int(v)
     out.setdefault(AXIS_DATA, 1)
     out.setdefault(AXIS_MODEL, 1)
-    if out[AXIS_MODEL] > 1:
-        # before the device count: data=1,model=2 on one process is refused
-        # for what it asks, not for the count
-        not_ported(f"--mesh {spec}", MULTI_DEVICE)
     total = out[AXIS_DATA] * out[AXIS_MODEL]
     if total != n:
         raise ValueError(
@@ -68,3 +72,79 @@ def default_mesh_for_batch(batch_size: int,
             f"processes (one per device): set BATCH_SIZE to a multiple of "
             f"{n}")
     return {AXIS_DATA: n, AXIS_MODEL: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This process's place on the ``model`` axis: rank ``rank`` of
+    ``size``, whose collectives run over ``group``. The sharded modules
+    carry it (``models/``)."""
+    group: object
+    size: int
+    rank: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This process's place in the ``data x model`` grid, and the process
+    groups of its two axes (``None`` where no collective runs over it:
+    outside a process group, or an axis of 1 beside the other; without a
+    model axis the data group is the whole group, of one process too)."""
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: object = None
+    model_group: object = None
+
+    @property
+    def shard(self) -> ModelShard | None:
+        """The model-axis handle the sharded modules take; ``None`` at
+        ``model`` = 1, where every module is the plain one."""
+        if self.model == 1:
+            return None
+        return ModelShard(self.model_group, self.model, self.model_rank)
+
+    def rows(self, n: int) -> tuple[int, int]:
+        """This process's rows [lo, hi) of an ``n``-row global batch: the
+        data ranks take contiguous slices in rank order, the first
+        ``n % data`` one row more (a ragged batch still covers every
+        row)."""
+        base, extra = divmod(n, self.data)
+        lo = self.data_rank * base + min(self.data_rank, extra)
+        return lo, lo + base + (self.data_rank < extra)
+
+
+_LAYOUTS: dict = {}
+
+
+def make_layout(spec: str | None = None) -> Layout:
+    """The layout of ``spec`` (``parse_mesh_spec``; None: every process on
+    ``data``) over the current process group, with its axis groups created.
+    Every process of the group must call it, in the same order as the
+    others (``dist.new_group`` is collective); a second call with the same
+    axes in the same group returns the first call's layout."""
+    axes = parse_mesh_spec(spec)
+    data, model = axes[AXIS_DATA], axes[AXIS_MODEL]
+    rank = process_index()
+    world = dist.group.WORLD if dist.is_initialized() else None
+    key = (data, model, world)
+    if key in _LAYOUTS:
+        return _LAYOUTS[key]
+    data_group = model_group = None
+    if model > 1:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == rank // model:
+                model_group = g
+    if model == 1:
+        data_group = world
+    elif data > 1:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == rank % model:
+                data_group = g
+    layout = Layout(data, model, rank // model, rank % model, data_group,
+                    model_group)
+    _LAYOUTS[key] = layout
+    return layout

@@ -50,13 +50,16 @@ def local_rank(rank: int | None = None) -> int:
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None, device=None) -> None:
+               process_id: int | None = None, device=None,
+               backend: str | None = None) -> None:
     """Join the process group: ``coordinator_address`` ``host:port`` of
     rank 0, the number of processes and this one's rank; where an argument
     is None, torchrun's environment (``MASTER_ADDR`` / ``MASTER_PORT``,
     ``WORLD_SIZE``, ``RANK``) gives it. ``device`` is the device the run
     asked for (None: the card): NCCL on the card, after this process takes
-    its card; gloo on the CPU. A no-op if a group already exists."""
+    its card; gloo on the CPU. ``backend`` names another backend where the
+    caller needs one (gloo between processes that share one card, which
+    NCCL refuses). A no-op if a group already exists."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -76,10 +79,10 @@ def initialize(coordinator_address: str | None = None,
                          f"pass the flags, or start the processes with "
                          f"torchrun")
     if torch.device(device or "cuda").type == "cuda":
-        backend = "nccl"
+        backend = backend or "nccl"
         torch.cuda.set_device(local_rank(process_id))
     else:
-        backend = "gloo"
+        backend = backend or "gloo"
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
@@ -101,21 +104,42 @@ def global_batch_from_local(local_batch, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(local_batch)).to(device)
 
 
-def all_reduce_mean(tensors, name: str) -> None:
+def all_reduce_mean(tensors, name: str, group=None) -> None:
     """Replace each tensor of ``tensors`` (in place) by its mean over the
-    processes of the group: one flat buffer per dtype, summed by one
-    all-reduce, divided by the process count. Counted under ``name``."""
+    processes of ``group`` (default: all): one flat buffer per dtype,
+    summed by one all-reduce, divided by the group's size. Counted under
+    ``name``."""
+    _all_reduce(tensors, name, group, mean=True)
+
+
+def all_reduce_sum(tensors, name: str, group=None) -> None:
+    """``all_reduce_mean`` without the division: the sum over ``group``."""
+    _all_reduce(tensors, name, group, mean=False)
+
+
+def _all_reduce(tensors, name: str, group, mean: bool) -> None:
     COLLECTIVES[name] += 1
-    world = process_count()
+    world = dist.get_world_size(group)
     by_dtype: dict = collections.defaultdict(list)
     for t in tensors:
         by_dtype[t.dtype].append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat.div_(world)
-        for t, part in zip(group, flat.split([t.numel() for t in group])):
+    for parts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        if mean:
+            flat.div_(world)
+        for t, part in zip(parts, flat.split([t.numel() for t in parts])):
             t.copy_(part.view_as(t))
+
+
+def gather_to_coordinator(obj):
+    """Every process's ``obj`` (picklable) in rank order on rank 0, None on
+    the others; ``[obj]`` without a group."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count() if is_coordinator() else None
+    dist.gather_object(obj, out, dst=0)
+    return out
 
 
 def barrier() -> None:

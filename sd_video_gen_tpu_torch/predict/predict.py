@@ -33,8 +33,18 @@ red border on predicted frames. The loop is pipelined one batch deep: batch
 i is decoded and written while batch i + 1 is queued on the device.
 ``--denoise`` refines every predicted latent at 512px; with it the codec and
 the refiner share one VAE at ``--denoise_precision`` (the JAX CLI keeps a
-second, f32 copy for the codec). ``--mesh`` raises: multi-device is not
-ported.
+second, f32 copy for the codec).
+
+Across processes (``--multihost``, or torchrun; one per device), laid out
+by ``--mesh data=D,model=M`` (``parallel/mesh.py``; the JAX CLI's
+``--mesh``): the transformer is whole on every process and each data rank
+rolls out its rows of every batch (``Layout.rows``); with M > 1 and
+``--denoise`` the refiner's UNet and VAE (the codec's too: they share it)
+are split over the model group by the tensor-parallel rules
+(``parallel/sharding.py``). The refiner's noise is drawn for the whole
+batch and cut to the rank's rows, so the run refines each clip as one
+process would. Rank 0 gathers the decoded clips and alone writes and
+prints.
 """
 
 from __future__ import annotations
@@ -48,9 +58,9 @@ import numpy as np
 import torch
 
 from sd_video_gen_tpu_torch.codecs import make_codec
-from sd_video_gen_tpu_torch.config import (MULTI_DEVICE, add_device_flag,
-                                           build_arg_parser, load_config,
-                                           not_ported)
+from sd_video_gen_tpu_torch.config import (add_device_flag,
+                                           add_multihost_flags,
+                                           build_arg_parser, load_config)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.identity import IdentityModel
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -60,6 +70,8 @@ from sd_video_gen_tpu_torch.ops.cached_rollout import (cached_rollout,
 from sd_video_gen_tpu_torch.ops.quantized import (quantize_frame_transformer,
                                                   quantized_ar_apply)
 from sd_video_gen_tpu_torch.ops.rollout import ar_rollout
+from sd_video_gen_tpu_torch.parallel import multihost
+from sd_video_gen_tpu_torch.parallel.mesh import make_layout
 
 
 def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
@@ -159,21 +171,48 @@ def load_model_params(cfg, args, model: torch.nn.Module,
     return model
 
 
-def sd_modules(args, device, dtype):
+def sd_modules(args, device, dtype, shard=None):
     """The SD VAE, UNet and CLIP text encoder at SD-v1.4 widths from
     ``--vae_weights`` / ``--unet_weights`` / ``--clip_weights`` (seeded
-    random weights where a file is not given), on ``device`` in ``dtype``."""
+    random weights where a file is not given), on ``device`` in ``dtype``;
+    with ``shard`` the VAE and UNet are that model rank's slices."""
     from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
     from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextConfig,
                                                          CLIPTextEncoder)
     from sd_video_gen_tpu_torch.models.unet import UNet2DCondition, UNetConfig
     from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     return (build_from_file(AutoencoderKL, VAEConfig(), "vae",
-                            args.vae_weights, device, dtype, seed=0),
+                            args.vae_weights, device, dtype, seed=0,
+                            shard=shard),
             build_from_file(UNet2DCondition, UNetConfig(), "unet",
-                            args.unet_weights, device, dtype, seed=1),
+                            args.unet_weights, device, dtype, seed=1,
+                            shard=shard),
             build_from_file(CLIPTextEncoder, CLIPTextConfig(), "clip",
                             args.clip_weights, device, dtype, seed=2))
+
+
+def build_refiner(args, cfg, device, layout, window, hi_res):
+    """The ``--denoise`` refiner at ``hi_res`` (None: the native latent
+    grid) and its VAE, at ``--denoise_precision``; the UNet and VAE split
+    over ``layout``'s model group, and the noise cut to ``window``'s rows
+    of each batch where the layout has a data axis."""
+    from sd_video_gen_tpu_torch.diffusion.refine import (default_noise,
+                                                         make_denoise_refiner,
+                                                         windowed_noise)
+    from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
+    vae, unet, clip = sd_modules(
+        args, device, torch.bfloat16 if args.denoise_precision == "bf16"
+        else torch.float32, layout.shard)
+    noise = None
+    if layout.data > 1:
+        noise = windowed_noise(default_noise(args.denoise_start_step, device),
+                               window)
+    refine = make_denoise_refiner(
+        SDPipeline(vae, unet, clip, tokenizer_dir=args.tokenizer_dir),
+        cfg.frame_size, args.denoise_start_step, hi_res=hi_res,
+        noise_fn=noise, sampler=args.denoise_sampler,
+        solver_steps=args.denoise_solver_steps)
+    return refine, vae
 
 
 def build_codec(cfg, args, device, vae=None):
@@ -265,7 +304,7 @@ def add_serving_flags(parser):
     parser.add_argument("--denoise_solver_steps", type=int, default=None,
                         help="dpmpp UNet evaluations (default: half the "
                              "DDIM tail, at least 2)")
-    return add_device_flag(parser)
+    return add_device_flag(add_multihost_flags(parser))
 
 
 def build_predict_parser():
@@ -292,11 +331,27 @@ def build_predict_parser():
     return parser
 
 
+def join_run(parser, args):
+    """Join the process group where asked (``--multihost``) and lay it out
+    by ``--mesh`` (``parallel/mesh.make_layout``): the layout; one process
+    on its own without either. Refuses what the layout cannot serve."""
+    if args.multihost:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, args.device)
+    layout = make_layout(args.mesh)
+    if layout.data > 1 and args.reference_pe:
+        # its positional term is the clip's index in the global batch
+        parser.error("--reference_pe adds PE(batch index): a data axis "
+                     "above 1 would index each rank's rows from 0")
+    return layout
+
+
 def main(argv=None):
     parser = build_predict_parser()
     args = parser.parse_args(argv)
-    if args.mesh:
-        not_ported("--mesh", MULTI_DEVICE)
+    if (args.mesh or args.multihost) and args.serve:
+        parser.error("--serve answers one socket from one process: it takes "
+                     "no --mesh or --multihost")
     if args.reference_pe and (args.int8 or args.rollout == "cached"):
         parser.error("--reference_pe is the full-forward compat path "
                      "(incompatible with --int8 / --rollout cached)")
@@ -308,22 +363,17 @@ def main(argv=None):
     if args.int8 and args.naive:
         parser.error("--int8 quantizes the transformer "
                      "(incompatible with --naive)")
+    layout = join_run(parser, args)
     cfg = load_config(args.config, args.config_dir)
-    device = default_device(args.device)
+    device = multihost.rank_device(default_device(args.device))
+    lead = multihost.is_coordinator()
 
+    from sd_video_gen_tpu_torch.diffusion.refine import BatchWindow
+    window = BatchWindow()
     refine_fn, vae = None, None
     if args.denoise:
-        from sd_video_gen_tpu_torch.diffusion.refine import (
-            make_denoise_refiner)
-        from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
-        vae, unet, clip = sd_modules(
-            args, device, torch.bfloat16 if args.denoise_precision == "bf16"
-            else torch.float32)
-        refine_fn = make_denoise_refiner(
-            SDPipeline(vae, unet, clip, tokenizer_dir=args.tokenizer_dir),
-            cfg.frame_size, args.denoise_start_step, hi_res=512,
-            sampler=args.denoise_sampler,
-            solver_steps=args.denoise_solver_steps)
+        refine_fn, vae = build_refiner(args, cfg, device, layout, window,
+                                       hi_res=512)
     codec = build_codec(cfg, args, device, vae)
     model = build_model(cfg, args, device)
     # --naive is the pure copy-last-frame control: never wrap Identity with
@@ -355,6 +405,7 @@ def main(argv=None):
                             exact_frames=exact)
     n_clips = min(len(dataset), args.max_clips)
     n_done = n_batches = 0
+    gathers = layout.data * layout.model > 1
     stage_s = {"data": 0.0, "dispatch": 0.0, "decode": 0.0, "io": 0.0}
     # The warm window starts when the first batch's rollout has ended: on
     # the CPU a call returns then; on the card the host runs ahead of the
@@ -373,15 +424,26 @@ def main(argv=None):
         nonlocal n_done
         context, preds, n_items = pending
         t2 = time.perf_counter()
-        # the reference's layout: the context minus its last frame, then
-        # the predictions
-        seq = torch.cat([context[:, :-1], preds], dim=1)
-        is_pred = [False] * (context.shape[1] - 1) + [True] * preds.shape[1]
-        T_out = seq.shape[1]
-        imgs = codec.decode_latents(seq.reshape(-1, seq.shape[-1])) \
-            .cpu().numpy()
+        imgs = None
+        if context is not None:
+            # the reference's layout: the context minus its last frame,
+            # then the predictions
+            seq = torch.cat([context[:, :-1], preds], dim=1)
+            is_pred = ([False] * (context.shape[1] - 1)
+                       + [True] * preds.shape[1])
+            T_out = seq.shape[1]
+            imgs = codec.decode_latents(seq.reshape(-1, seq.shape[-1])) \
+                .cpu().numpy()
+        if gathers:
+            # every data rank's rows, in order, from model rank 0 of each
+            parts = multihost.gather_to_coordinator(
+                imgs if layout.model_rank == 0 else None)
+            if lead:
+                imgs = np.concatenate([
+                    parts[d * layout.model] for d in range(layout.data)
+                    if parts[d * layout.model] is not None])
         t3 = time.perf_counter()
-        for b in range(n_items):
+        for b in range(n_items if lead else 0):
             clip_imgs = imgs[b * T_out:(b + 1) * T_out]
             if args.save_output:
                 print("saved to:", save_frames(clip_imgs, is_pred))
@@ -397,16 +459,21 @@ def main(argv=None):
     for start in range(0, n_clips, args.batch_clips):
         n_batches += 1
         t0 = time.perf_counter()
-        items = [dataset[i] for i in range(
-            start, min(start + args.batch_clips, n_clips))]
-        frames = torch.from_numpy(np.stack([it[1] for it in items]))
+        n = min(args.batch_clips, n_clips - start)
+        lo, hi = layout.rows(n)            # this data rank's rows
+        window.set(lo, hi, n)
+        items = [dataset[i] for i in range(start + lo, start + hi)]
         text_embeds = None
-        if embedder is not None:
+        if items and embedder is not None:
             text_embeds = embedder(
                 [int(it[0][0]) if isinstance(it[0], (list, tuple)) else 0
                  for it in items])
         t1 = time.perf_counter()
-        context, preds = predict(frames, text_embeds)
+        context = preds = None
+        if items:     # a data rank may hold no row of a short batch
+            context, preds = predict(
+                torch.from_numpy(np.stack([it[1] for it in items])),
+                text_embeds)
         stage_s["data"] += t1 - t0
         stage_s["dispatch"] += time.perf_counter() - t1
         if n_batches == 1:
@@ -416,11 +483,13 @@ def main(argv=None):
                 first_sync_s = time.perf_counter() - t_start
         if pending is not None:
             process(pending)
-        pending = (context, preds, len(items))
+        pending = (context, preds, n)
     if pending is not None:
         process(pending)      # its fetch waited for every batch's work
         if events:
             first_sync_s = events[0].elapsed_time(events[1]) / 1e3
+    if not lead:
+        return
     print(f"predicted {args.pred_frames} frames for {n_done} clips")
     if args.timing:
         print(json.dumps({

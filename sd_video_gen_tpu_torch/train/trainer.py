@@ -38,15 +38,25 @@ Input: the frame datasets, UCF-101 (``--dataset ucf*``,
 ``data/ucf101.py``) or a pre-built frame cache read by the C++ loader
 (``--native_cache``, ``data/native_loader.py``).
 
-Data parallel across processes (``--multihost``, or torchrun), one device
-each (``parallel/``): every process loads its slice of each global batch,
-runs the step on its own device, and the gradients are averaged across
-processes after the backward pass (with equal slices, the global batch's
-mean gradient); the epoch's loss sums are averaged the same way. Rank 0
-alone logs and writes checkpoints, the others wait for it at a barrier.
-Each rank folds its rank into the dropout seed. Not ported yet, and raising
-``NotImplementedError`` when asked for: a mesh with a ``model`` axis above 1
-(tensor parallelism).
+Across processes (``--multihost``, or torchrun), one device each, laid
+out by ``--mesh data=D,model=M`` (``parallel/mesh.py``; default: every
+process on ``data``). Data parallel: every data rank loads its slice of
+each global batch, runs the step on its own device, and the gradients are
+averaged over the ``data`` group after the backward pass (with equal
+slices, the global batch's mean gradient); the epoch's loss sums are
+averaged the same way. Tensor parallel (M > 1): the ranks of a model group
+share one slice of every batch and each holds its shard of the
+FrameTransformer (``parallel/sharding.py``: the attention heads and the
+feed-forward's hidden features) and of Adam's moments; the model group's
+collectives are the autograd functions of ``parallel/constrain.py``, inside
+the forward and backward. The dropout seed folds in the data rank, so the
+masks on the replicated residual stream are equal on every rank of a model
+group (else the replicated parameters would drift apart); the masks on a
+rank's own heads and hidden features fold in its model rank too.
+Checkpoints gather the whole state to rank 0, so ``state.pt`` keeps its
+format: a tensor-parallel checkpoint restores in one process and the other
+way round. Rank 0 alone logs and writes checkpoints, the others wait for it
+at a barrier.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import torch
 
 from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
 from sd_video_gen_tpu_torch.config import (Config, add_device_flag,
+                                           add_multihost_flags,
                                            build_arg_parser, load_config,
                                            sweep_grid)
 from sd_video_gen_tpu_torch.models import build, default_device
@@ -69,7 +80,8 @@ from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
 from sd_video_gen_tpu_torch.ops.losses import LossWeights, composite_loss
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
 from sd_video_gen_tpu_torch.parallel import (default_mesh_for_batch,
-                                             multihost, parse_mesh_spec)
+                                             multihost, sharding)
+from sd_video_gen_tpu_torch.parallel.mesh import make_layout, parse_mesh_spec
 from sd_video_gen_tpu_torch.train import checkpoint as ckpt
 from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
 from sd_video_gen_tpu_torch.train.optim import Adam
@@ -120,10 +132,11 @@ def encode_or_passthrough(codec, batch, use_sos: bool) -> torch.Tensor:
 
 
 def _predictions_and_targets(model, latents, k: int, mode: str,
-                             generator=None, text_embeds=None):
+                             generator=None, text_embeds=None,
+                             local_generator=None):
     """Shared forward logic for train and eval; returns (pred_k, target_k).
     Dropout follows the model's ``train()`` / ``eval()`` mode."""
-    kwargs = {"generator": generator}
+    kwargs = {"generator": generator, "local_generator": local_generator}
     if text_embeds is not None:
         kwargs["text_embeds"] = text_embeds
     if mode in ("future", "learned_tgt"):
@@ -144,14 +157,19 @@ def _predictions_and_targets(model, latents, k: int, mode: str,
     return pred_k, y_exp[:, -k:]
 
 
-def dropout_seed(seed: int, step: int, rank: int = 0) -> int:
+def dropout_seed(seed: int, step: int, rank: int = 0,
+                 model_rank: int | None = None) -> int:
     """The dropout generator's seed for step number ``step`` of a run seeded
-    with ``seed``, on process ``rank``: a fixed function of the three, so
+    with ``seed``, on data rank ``rank``: a fixed function of the three, so
     the draws of a step do not depend on how the run reached it, and the
     processes of a data-parallel run draw other masks for their other
-    samples (rank 0 draws what a single process does)."""
-    return (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9
-            + int(rank) * 0xD6E8FEB86659FD93 + 0x94D049BB133111EB) % (1 << 63)
+    samples (rank 0 draws what a single process does). With ``model_rank``:
+    the seed of that model rank's own heads and hidden features."""
+    out = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9
+           + int(rank) * 0xD6E8FEB86659FD93 + 0x94D049BB133111EB)
+    if model_rank is not None:
+        out += (int(model_rank) + 1) * 0xA0761D6478BD642F
+    return out % (1 << 63)
 
 
 def _device_of(model) -> torch.device:
@@ -165,7 +183,7 @@ def _to_device(text_embeds, device):
 
 
 def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
-                    mode: str = "ar", mu_dtype=None):
+                    mode: str = "ar", mu_dtype=None, layout=None):
     """Build (init_fn, step_fn) over ``model`` (a trainable
     ``FrameTransformer``) and the frozen ``codec``.
 
@@ -175,17 +193,19 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     device (no synchronisation). ``mu_dtype`` goes to Adam. Loss terms are
     always computed in f32, whatever the model's compute dtype (GDL's
     differences and NCE's logits lose real precision in bf16).
-    In a process group (``parallel/multihost.py``) the gradients are
-    averaged over the processes (one all-reduce a step) before the update,
-    and the rank salts the dropout seed; the components stay this process's
-    own."""
+    In a process group the gradients are averaged over the ``data`` group
+    of ``layout`` (``parallel/mesh.py``; default: every process on
+    ``data``), one all-reduce a step, before the update, and the data rank
+    salts the dropout seed; the components stay this process's own. With a
+    model axis, ``model`` is this rank's shard and the model rank salts the
+    seed of the dropout on its own heads and features."""
     k = cfg.frames_to_predict
     use_sos = mode not in ("future", "learned_tgt")
     opt = Adam(cfg.lr, mu_dtype=mu_dtype)
     device = _device_of(model)
+    layout = layout or make_layout()
     generator = torch.Generator(device=device)
-    rank = multihost.process_index()
-    reduce_grads = torch.distributed.is_initialized()
+    local = torch.Generator(device=device) if layout.model > 1 else None
 
     def init_fn() -> TrainState:
         return TrainState(model, opt.init(dict(model.named_parameters())))
@@ -193,19 +213,23 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     def step_fn(state: TrainState, frames, seed: int, text_embeds=None):
         if not model.training:
             model.train()
-        generator.manual_seed(dropout_seed(seed, state.step, rank))
+        generator.manual_seed(dropout_seed(seed, state.step,
+                                           layout.data_rank))
+        if local is not None:
+            local.manual_seed(dropout_seed(seed, state.step, layout.data_rank,
+                                           layout.model_rank))
         latents = encode_or_passthrough(codec, frames, use_sos)
         pred_k, target_k = _predictions_and_targets(
             model, latents, k, mode, generator,
-            _to_device(text_embeds, device))
+            _to_device(text_embeds, device), local)
         total, comps = composite_loss(pred_k.float(), target_k.float(),
                                       loss_w)
         names = list(state.params)
         grads = torch.autograd.grad(total, [state.params[n] for n in names],
                                     allow_unused=True)
-        if reduce_grads:
+        if layout.data_group is not None:
             multihost.all_reduce_mean([g for g in grads if g is not None],
-                                      "grads")
+                                      "grads", layout.data_group)
         state.step += 1
         opt.update(state.params, dict(zip(names, grads)), state.opt_state,
                    state.step)
@@ -254,8 +278,9 @@ class Trainer:
     has to be asked for: ``device='cpu'`` or ``--device cpu``); in a process
     group, the card is this rank's own. ``vae`` is the frozen
     ``AutoencoderKL`` of ``codec_kind='vae'`` (seeded random weights at SD
-    widths when none is given). ``args.mesh`` (``--mesh``) must describe
-    the process group: ``data`` = the process count, ``model`` = 1."""
+    widths when none is given). ``args.mesh`` (``--mesh``) lays out the
+    process group (``parallel/mesh.make_layout``); the global batch must
+    divide over its ``data`` axis."""
 
     def __init__(self, cfg: Config, args=None, mode: str = "ar",
                  codec_kind: str = "pixel", model_cfg=None,
@@ -272,13 +297,11 @@ class Trainer:
             raise ValueError(f"unknown precision {self.precision}")
         spec = getattr(args, "mesh", None) if args is not None else None
         # the mesh is the process group: the spec must describe it, and the
-        # global batch must divide over its processes
-        if spec:
-            parse_mesh_spec(spec)
-        default_mesh_for_batch(cfg.batch_size)
+        # global batch must divide over its data axis
+        self.layout = make_layout(spec)
+        default_mesh_for_batch(cfg.batch_size, self.layout.data)
         self.rank = multihost.process_index()
         self.is_coordinator = multihost.is_coordinator()
-        self.distributed = torch.distributed.is_initialized()
         self.device = multihost.rank_device(default_device(
             device if device is not None else getattr(args, "device", None)))
         self.codec = make_codec(cfg, codec_kind, vae=vae, device=self.device)
@@ -314,16 +337,38 @@ class Trainer:
         full = self.precision == "bf16_full"
         self.model = build(FrameTransformer, self.model_cfg, self.device,
                            torch.bfloat16 if full else torch.float32, seed,
-                           trainable=True)
+                           trainable=True, shard=self.layout.shard)
+        # where each parameter (and its moments) lives on the model axis
+        self.placements = sharding.placements(
+            "transformer", self.model.state_dict(), self.layout.model)
         self._init_fn, self._step_fn = make_train_step(
             self.model, self.codec, self.loss_w, self.cfg, self.mode,
-            mu_dtype=torch.bfloat16 if full else None)
+            mu_dtype=torch.bfloat16 if full else None, layout=self.layout)
         self._eval_fn = make_eval_step(self.model, self.codec, self.loss_w,
                                        self.cfg, self.mode)
         self.state = self._init_fn()
-        n = sum(p.numel() for p in self.state.params.values())
+        n = sum(p.numel() * (self.layout.model if self.placements[k] else 1)
+                for k, p in self.state.params.items())
         self.logger.log({"event": "init", "n_params": n})
         return self.state
+
+    def _shard(self, sd: dict) -> dict:
+        """This rank's slice of a whole ``state_dict`` of the model."""
+        return sharding.shard_state_dict(sd, self.placements,
+                                         self.layout.model_rank,
+                                         self.layout.model)
+
+    def full_state(self) -> dict:
+        """The whole train state (``TrainState.state_dict()`` form): this
+        rank's own without a model axis, else gathered over the model
+        group (every rank of the group takes part)."""
+        sd = self.state.state_dict()
+        shard = self.layout.shard
+        if shard is None:
+            return sd
+        return {"step": sd["step"], **{
+            tree: sharding.gather_state_dict(sd[tree], self.placements, shard)
+            for tree in ("params", "mu", "nu")}}
 
     def resume(self, old_name: str):
         """Continue from the port's checkpoint directory ``old_name`` under
@@ -343,10 +388,19 @@ class Trainer:
                   if "positional_encoder" not in k
                   and not (self.mode == "text"
                            and k.startswith("sent_transformer."))}
-            self.model.load_state_dict(sd, strict=True)
+            self.model.load_state_dict(self._shard(sd), strict=True)
         else:
-            self.state.load_state_dict(
-                ckpt.restore_checkpoint(path, self.state.state_dict()))
+            # the whole state (zero-stride stand-ins give its shapes and
+            # dtypes), then this rank's slice
+            trees = ("params", "mu", "nu")
+            local = self.state.state_dict()
+            like = {"step": 0, **{tree: {
+                k: torch.empty((), dtype=v.dtype).expand(sharding.full_shape(
+                    v.shape, self.placements[k], self.layout.model))
+                for k, v in local[tree].items()} for tree in trees}}
+            whole = ckpt.restore_checkpoint(path, like)
+            self.state.load_state_dict({"step": whole["step"], **{
+                tree: self._shard(whole[tree]) for tree in trees}})
 
     # -- loops --------------------------------------------------------------
     def _texts(self, indices):
@@ -368,11 +422,12 @@ class Trainer:
                 for k, v in zip(keys, means)}
 
     def _reduced(self, sums):
-        """The epoch's loss sums averaged over the processes: each summed
+        """The epoch's loss sums averaged over the data ranks: each summed
         the means of its own slices, so the average is the sum of the
         global batches' means."""
-        if self.distributed and sums is not None:
-            multihost.all_reduce_mean([sums], "metrics")
+        if self.layout.data_group is not None and sums is not None:
+            multihost.all_reduce_mean([sums], "metrics",
+                                      self.layout.data_group)
         return sums
 
     def train_loop(self, loader, seed: int = 0):
@@ -484,19 +539,19 @@ class Trainer:
                 st_real = st_real.merge(features(real))
         finally:
             model.train(was_training)
-        if self.distributed:
+        if self.layout.data_group is not None:
             st_real, st_gen = (self._pooled(st) for st in (st_real, st_gen))
         return compute_fvd(st_real, st_gen)
 
     def _pooled(self, st):
-        """FVD statistics over every process's clips: the mean over the
-        processes of (n, sum, sum of outer products), whose mean and
+        """FVD statistics over every data rank's clips: the mean over the
+        data ranks of (n, sum, sum of outer products), whose mean and
         covariance are the pooled ones (the JAX trainer streams the
         assembled global batch)."""
         from sd_video_gen_tpu_torch.evaluation.fvd import FeatureStats
         parts = [torch.as_tensor(np.asarray(a, np.float64), device=self.device)
                  for a in (st.n, st.raw_sum, st.raw_prod)]
-        multihost.all_reduce_mean(parts, "fvd_stats")
+        multihost.all_reduce_mean(parts, "fvd_stats", self.layout.data_group)
         n, raw_sum, raw_prod = (p.cpu().numpy() for p in parts)
         return FeatureStats(st.dim, np.float64(n), raw_sum, raw_prod)
 
@@ -539,8 +594,10 @@ class Trainer:
             multihost.barrier()           # ... and written it
         except (KeyboardInterrupt, SystemExit, Exception) as e:
             # failure/preemption handling: persist an emergency checkpoint
-            # (parameters + moments + step) so --resume continues exactly
-            if self.state is not None:
+            # (parameters + moments + step) so --resume continues exactly.
+            # Not with a model axis: gathering the shards needs every rank
+            # of the group, and a failure need not have reached them all
+            if self.state is not None and self.layout.shard is None:
                 path = self.save("interrupt")
                 self.logger.log({"event": "interrupt",
                                  "error": type(e).__name__,
@@ -564,12 +621,14 @@ class Trainer:
             self.save("test", block=False)
 
     def save(self, mode_tag: str, block: bool = True):
-        """Write the train state (rank 0 only: every process holds the same
-        one); returns the checkpoint's path."""
+        """Write the whole train state (``full_state``; rank 0 writes it:
+        every data rank holds the same one); returns the checkpoint's
+        path. With a model axis every rank must call it."""
         path = ckpt.checkpoint_path(self.checkpoint_dir, self.cfg.config_name,
                                     self.index, mode_tag)
+        state = self.full_state()
         if self.is_coordinator:
-            ckpt.save_checkpoint(path, self.state.state_dict(), block=block)
+            ckpt.save_checkpoint(path, state, block=block)
         return path
 
 
@@ -660,17 +719,7 @@ def build_train_parser():
                         choices=list(PRECISIONS),
                         help="f32 | bf16 (bf16 compute, f32 master weights) "
                              "| bf16_full (bf16 weights + bf16 Adam moments)")
-    parser.add_argument("--multihost", action="store_true",
-                        help="join a data-parallel run of one process per "
-                             "device (torch.distributed: NCCL on the card, "
-                             "gloo on the CPU); each process loads only its "
-                             "slice of every global batch")
-    parser.add_argument("--coordinator", type=str, default=None,
-                        help="rank 0's host:port (torchrun's MASTER_ADDR / "
-                             "MASTER_PORT where absent)")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
-    return add_device_flag(parser)
+    return add_device_flag(add_multihost_flags(parser))
 
 
 def main(argv=None):
@@ -681,6 +730,8 @@ def main(argv=None):
         # card
         multihost.initialize(args.coordinator, args.num_processes,
                              args.process_id, args.device)
+    if args.mesh:
+        parse_mesh_spec(args.mesh)       # before anything is built
 
     from sd_video_gen_tpu_torch.data import BatchLoader
 
@@ -703,11 +754,11 @@ def main(argv=None):
             from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
             fvd_i3d = load_i3d(args.i3d_weights, trainer.device)
         # every process derives the same global epoch order from the shared
-        # seed and loads only its contiguous slice of each global batch
-        # (both loaders keep that contract); ragged tails trim to a multiple
-        # of the process count (the data axis)
-        count = multihost.process_count()
-        shard = (trainer.rank, count) if count > 1 else None
+        # seed and loads only its data rank's contiguous slice of each
+        # global batch (both loaders keep that contract); ragged tails trim
+        # to a multiple of the data axis
+        count = trainer.layout.data
+        shard = (trainer.layout.data_rank, count) if count > 1 else None
         if args.native_cache:
             from sd_video_gen_tpu_torch.data.native_loader import (
                 NativeBatchLoader)

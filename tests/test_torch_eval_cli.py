@@ -150,10 +150,14 @@ def test_clips_under_nine_frames_are_refused_before_anything_runs(files):
 
 
 def test_mesh_raises(files):
-    with pytest.raises(NotImplementedError, match="--mesh.*multi-device"):
+    """A mesh that is not the process group, and a mesh with the batch
+    API (its statistics are summed over the data axis), are refused before
+    anything is built (``test_torch_tensor_parallel.py`` runs the mesh)."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1.*torchrun"):
         PPF.main(_argv(files, "--mesh", "data=2", "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PPF.make_sharded_features(None, None)
+    with pytest.raises(SystemExit):
+        PPF.main(_argv(files, "--mesh", "data=1", "--fvd_api", "batch",
+                       "--device", "cpu"))
 
 
 def _frame_tree(root, rng):

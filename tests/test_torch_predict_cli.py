@@ -169,8 +169,12 @@ def test_the_jax_clis_refusals_stand(run_dir, extra):
 
 
 def test_mesh_raises_before_anything_is_built(run_dir):
-    with pytest.raises(NotImplementedError, match="--mesh.*multi-device"):
+    """A mesh that is not the process group (one process here) is refused
+    before anything is built (``test_torch_tensor_parallel.py`` runs the
+    mesh)."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1.*torchrun"):
         P.main(_argv(run_dir, "--mesh", "data=2"))
+    assert not os.path.exists(run_dir / "outputs")
 
 
 def test_the_cli_needs_a_card_unless_the_cpu_is_asked_for(run_dir):

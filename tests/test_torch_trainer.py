@@ -109,13 +109,15 @@ def test_the_cli_needs_a_card_unless_the_cpu_is_asked_for(run_dir):
 
 
 # (--fvd_every, --vae_weights, --multihost, --native_cache and --dataset ucf*
-# were refused here until each was ported; the id of the case still refused
-# is kept: a mesh with a model axis asks for tensor parallelism)
+# were refused here until each was ported, and so was a mesh with a model
+# axis until tensor parallelism was; its id is kept: in one process the
+# two-process mesh is refused at argument time)
 @pytest.mark.parametrize("extra,match", [
-    pytest.param(["--mesh", "data=1,model=2"], "--mesh.*parallel",
+    pytest.param(["--mesh", "data=1,model=2"],
+                 "needs 2 devices, have 1.*torchrun",
                  id="extra1---mesh.*parallel")])
 def test_unported_flags_raise_at_argument_time(run_dir, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         T.main(_argv(run_dir, *extra))
     assert not os.path.exists(run_dir / "logs")      # nothing was built
     assert not os.path.exists(run_dir / "ck")
@@ -123,7 +125,7 @@ def test_unported_flags_raise_at_argument_time(run_dir, extra, match):
 
 def test_fit_and_trainer_refuse_unported_features_too(run_dir):
     cfg = load_config("tiny", str(run_dir / "cfgs"))
-    with pytest.raises(NotImplementedError, match="--mesh.*multi-device"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         T.Trainer(cfg, type("A", (), {"mesh": "data=1,model=2"})(),
                   device="cpu", use_wandb=False,
                   checkpoint_dir=str(run_dir / "ck"))
