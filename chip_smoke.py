@@ -16,9 +16,13 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               f32, timed
               with CUDA events (plain, kernel, kernel, plain); each flash
               row also names the kernel's body (``attention.route``: wgmma
-              or fma), its TFLOP/s (4 BH T^2 d / time), its bound and, for
-              scale only, torch's SDPA time on the same inputs (a
-              yardstick, not a port); each GroupNorm signature is checked
+              for bf16, tf32x3 for f32), its TFLOP/s (4 BH T^2 d / time),
+              its bound (f32: three TF32 products on the tensor cores, the
+              CUDA-core figure printed beside it) and, for scale only,
+              torch's SDPA time on the same inputs (a yardstick, not a
+              port); each f32 row also times the FMA body on the same
+              inputs through its C entry point (measurement only: no path
+              takes it); each GroupNorm signature is checked
               in the memory format the path hands it (channels-last: the
               NHWC body, with its mode: cluster or streaming) and
               once more as a contiguous tensor (the NCHW body), each row
@@ -73,7 +77,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               loss (finite; the last below the first for
               ``train_ref_artifact``), peak memory and the exact launch
               counts by body are printed and checked; the VAE step's flash
-              launches must take the f32 FMA body. Before the paths, a dry
+              launches must take the f32 tensor-core body (tf32x3).
+              Before the paths, a dry
               run of the VAE step's encode records its kernel shapes and
               each is held against its plain version in f32. After them: the
               ``train_flagship`` state is saved, restored into a fresh
@@ -110,7 +115,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               losses, a checkpoint, warm steps/s and clips/s (the steps
               after the first), host ms blocked in
               ``fl_next_batch`` a batch, and exact launches (one K1 on the
-              FMA body and 22 K2 an encoded batch, train and val; the
+              f32 tensor-core body and 22 K2 an encoded batch, train and
+              val; the
               encode's kernel shapes are held against the plain versions in
               f32 first); the same run again with ``--multihost
               --num_processes 1`` (one NCCL group): losses and the saved
@@ -146,9 +152,12 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
 
-The line before the last lists the kernels as JSON; the last line is
-``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and matmul
-so every f32 comparison runs in full f32.
+The line before the last lists the kernels as JSON (flash attention's entry
+also gives its main-path launches by body and the f32 training shape's
+row); the last line is ``{"ok": true, "device": {...}}``. TF32 is switched
+off for cuDNN and matmul so every f32 comparison runs in full f32 (the
+kernel's f32 body splits its operands itself: its TF32 products carry f32
+accuracy).
 """
 
 from __future__ import annotations
@@ -295,9 +304,15 @@ SMALL_TRAIN_LOSS_RTOL = 1e-4
 SMALL_TRAIN_GRAD_REL_L2 = 1e-3
 TEXT_CLASSES, TEXT_DIM = 101, 384
 # Kernel vs its plain version computed in f32 from the same inputs.
-# flash attention, max abs: f32 FMA order over up to 4096 keys; bf16: p is
-# rounded to bf16 before p.v and the output to bf16, as in the TPU kernel.
+# flash attention, max abs: f32, the FMA body's order over up to 4096 keys;
+# bf16: p is rounded to bf16 before p.v and the output to bf16, as in the
+# TPU kernel.
 ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The f32 tensor-core body (three TF32 products) has a limit of its own,
+# 3x its worst reading on the card (9.42e-6): dropping any one of its four
+# cross terms leaves 4.6e-5 or more in exact sums
+# (tests/test_torch_attention.py), so 1e-4 alone would not catch it.
+TF32X3_ATOL = 3e-5
 # GroupNorm+SiLU, |out - ref| <= rtol |ref| + atol: f32, the same two-pass
 # statistics summed in another order; bf16, the one final rounding (half an
 # ulp, 2^-9 relative) plus that f32 noise.
@@ -388,7 +403,8 @@ DATA_TEXT_CLIPS = (24, 12)
 # The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+F32_FLOPS = 67e12      # CUDA cores, outside the tensor cores
 KERNELS = {
     "flash_attention": dict(
         source="sd_video_gen_tpu_torch/csrc/flash_attention.cu",
@@ -397,6 +413,12 @@ KERNELS = {
         source="sd_video_gen_tpu_torch/csrc/groupnorm_silu_nhwc.cu",
         replaces="sd_video_gen_tpu/ops/groupnorm.py:35"),
 }
+FLASH_BODIES = ("wgmma", "tf32x3", "fma")
+# Flash launches by body over the main path's counted windows (``counted``).
+BODY_LAUNCHES: collections.Counter = collections.Counter()
+# The flash rows of the f32 training step's dry run (phase 7), for the
+# kernels line.
+TRAIN_F32_ROWS: list = []
 
 
 def log(*a):
@@ -617,6 +639,73 @@ def merge_signatures(counters) -> collections.Counter:
     return merged
 
 
+def fma_body(q, k, v, scale):
+    """The f32 FMA body through its C entry point (dtype code 0), for timing
+    beside the body the path takes; not counted (no path launches it)."""
+    out = torch.empty_like(q)
+    err = _kernels.library().sdvg_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.shape, float(scale), 0, torch.cuda.current_stream().cuda_stream)
+    _kernels.check(err, "flash_attention (fma, timed)")
+    return out
+
+
+def split_tf32(x):
+    """(big, small) of f32 ``x`` as the f32 tensor-core body splits it: big
+    = tf32(x), small = tf32(x - big), rounded to nearest with ties away
+    (half a TF32 ulp added to the bits, the 13 low ones cleared)."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def tensor_core_split_attention(q, k, v, scale):
+    """Attention with both products made of the f32 body's three TF32
+    products (big * small, small * big, big * big) in one accumulator, but
+    by cuBLAS on the tensor cores (TF32 on; the parts side by side along
+    the contraction), 8 heads at a time. Measurement only: its distance
+    from the plain version is the tensor cores' own f32 accumulation, to
+    set beside the body's."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = torch.empty_like(q)
+        for h in range(0, q.shape[0], 8):
+            qb, qs = split_tf32(q[h:h + 8])
+            kb, ks = split_tf32(k[h:h + 8])
+            vb, vs = split_tf32(v[h:h + 8])
+            s = torch.cat([qb, qs, qb], -1) @ torch.cat(
+                [ks, kb, kb], -1).transpose(1, 2) * scale
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            del s
+            pb, ps = split_tf32(p)
+            out[h:h + 8] = torch.cat([ps, pb, pb], -1) @ torch.cat(
+                [vb, vs, vb], 1) / p.sum(-1, keepdim=True)
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def tensor_core_rounding() -> float:
+    """Share of the tensor cores' f32 sums (cuBLAS, TF32 on, 512 x 512 x
+    512, TF32-exact operands so every product is exact) that land nearer
+    zero than the exact sum, among those that differ from it: about 0.5
+    for rounding to nearest, 1 for truncation."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a, b = (split_tf32(torch.randn(512, 512, generator=g, device="cuda"))[0]
+            for _ in range(2))
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = (a @ b).double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    exact = a.double() @ b.double()
+    off = got != exact
+    return ((got.abs() < exact.abs()) & off).sum().item() / off.sum().item()
+
+
 def check_attention(sig, dtype) -> dict:
     shape, _, scale = sig
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -625,6 +714,9 @@ def check_attention(sig, dtype) -> dict:
     out = flash_attention(q, k, v, scale)
     ref = reference_attention(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        tc_err = (tensor_core_split_attention(q, k, v, scale) - ref
+                  ).abs().max().item()
     del out, ref
     ms, plain_ms = timed(lambda: reference_attention(q, k, v, scale),
                          lambda: flash_attention(q, k, v, scale))
@@ -633,18 +725,27 @@ def check_attention(sig, dtype) -> dict:
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], scale=scale), 20)
     BH, T, d = shape
-    # least time: both products at the peak rate of the type (f32 runs
-    # outside the tensor cores), or q, k, v read and the output written once
-    flops_ms = 4 * BH * T * T * d / (BF16_FLOPS if dtype == torch.bfloat16
-                                     else F32_FLOPS) * 1e3
+    ops = 4 * BH * T * T * d
+    # least time: both products at the best rate the card has for the type,
+    # or q, k, v read and the output written once. f32-accurate products:
+    # three TF32 products on the tensor cores (165 TFLOP/s of f32 work,
+    # beating the CUDA cores' 67).
+    flops_ms = (ops / BF16_FLOPS if dtype == torch.bfloat16
+                else 3 * ops / TF32_FLOPS) * 1e3
     bytes_ms = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
-    return dict(max_abs_err=err, ok=err <= ATTN_ATOL[dtype], ms=ms,
-                plain_ms=plain_ms,
-                route=route(dtype, d, (q.data_ptr(), k.data_ptr(),
-                                       v.data_ptr())),
-                tflops=4 * BH * T * T * d / ms / 1e9, library_ms=sdpa_ms,
+    body = route(dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    extra = {}
+    if dtype == torch.float32:
+        extra = dict(cuda_core_ms=ops / F32_FLOPS * 1e3, tc_err=tc_err,
+                     fma_ms=cuda_ms(lambda: fma_body(q, k, v, scale),
+                                    max(3, min(20, int(25 / ms)))))
+    atol = TF32X3_ATOL if body == "tf32x3" else ATTN_ATOL[dtype]
+    return dict(max_abs_err=err, ok=err <= atol, ms=ms,
+                plain_ms=plain_ms, route=body,
+                tflops=ops / ms / 1e9, library_ms=sdpa_ms,
                 bound_ms=max(flops_ms, bytes_ms),
-                bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                **extra)
 
 
 def check_groupnorm(sig, dtype, body) -> dict:
@@ -750,7 +851,13 @@ def check_signatures(sigs, dtypes, what: str = "") -> list:
                            dtype=str(dtype).split(".")[-1], calls=calls,
                            on_path=body != "nchw", **res)
                 rows.append(row)
-                extra = (f", {row['tflops']:.1f} TFLOP/s"
+                extra = (f", {row['tflops']:.1f} TFLOP/s" + (
+                    f"; FMA body {row['fma_ms']:.4f} ms (this body "
+                    f"{row['fma_ms'] / row['ms']:.2f}x faster), CUDA-core "
+                    f"bound {row['cuda_core_ms']:.4f} ms; the three TF32 "
+                    f"products by cuBLAS on the tensor cores: err "
+                    f"{row['tc_err']:.2e}"
+                    if "fma_ms" in row else "")
                          if name == "flash_attention" else
                          f" ({row['mode']}), {row['gbps']:.0f} GB/s"
                          if row["mode"] else f", {row['gbps']:.0f} GB/s")
@@ -773,6 +880,9 @@ def check_signatures(sigs, dtypes, what: str = "") -> list:
 
 
 def phase_kernel(sigs) -> dict:
+    log(f"kernel: tensor cores' f32 sums of exact TF32 products (cuBLAS, "
+        f"TF32 on): {tensor_core_rounding():.4f} of those off the exact sum "
+        f"lie nearer zero")
     rows = check_signatures(sigs, (torch.bfloat16, torch.float32))
     wrapper_host_cost()
     summary = {}
@@ -829,6 +939,13 @@ def passes_per_model(models) -> dict:
                                count(unet, nn.GroupNorm))}
 
 
+def counted(window) -> dict:
+    """A main-path window's launches, its flash launches by body added to
+    ``BODY_LAUNCHES``."""
+    BODY_LAUNCHES.update(window.bodies)
+    return window.launches
+
+
 class launch_window:
     """Counts of the main path: every count set to 0 on entry, read on exit
     (``launches``, and launches by body of each kernel)."""
@@ -848,8 +965,8 @@ class launch_window:
 
     def check(self, name: str, expected: dict, flash_body: str = "wgmma"):
         """Exact counts, every GroupNorm launch on the NHWC body and every
-        flash launch on ``flash_body``: the tensor-core body on the bf16
-        serving paths, the f32 FMA body in the f32 training step."""
+        flash launch on ``flash_body``: the bf16 tensor-core body on the
+        serving paths, the f32 one (tf32x3) in the f32 training step."""
         log(f"{name}: launches {self.launches}; flash attention by body "
             f"{self.bodies}; GroupNorm by body {self.gn_bodies}")
         if self.gn_bodies.get("nhwc", 0) != self.launches["groupnorm_silu"]:
@@ -942,7 +1059,7 @@ def phase_serve(models, path) -> dict:
     log(f"{name}: warm predicted frames/s at B={batch_clips}: {full} (mean "
         f"{float(np.mean(full)):.4f}); total "
         f"{time.perf_counter() - t_start:.1f} s")
-    return window.launches
+    return counted(window)
 
 
 def phase_sd(models) -> dict:
@@ -986,7 +1103,7 @@ def phase_sd(models) -> dict:
             f"images/s {[round(1 / w, 4) for w in warm]} (mean "
             f"{float(np.mean([1 / w for w in warm])):.4f}), UNet calls/s "
             f"{float(np.mean([calls / w for w in warm])):.2f}")
-        for k, n in window.launches.items():
+        for k, n in counted(window).items():
             total[k] += n
     return total
 
@@ -1242,8 +1359,8 @@ def run_train_path(path, trainer, enc_launches) -> dict:
     vae = path["codec"] == "vae"
     window.check(name, {k: steps * enc * vae
                         for k, enc in enc_launches.items()},
-                 flash_body="fma")
-    return window.launches
+                 flash_body="tf32x3")
+    return counted(window)
 
 
 def dropout_cost(path, workdir):
@@ -1370,8 +1487,9 @@ def phase_train(models, workdir) -> tuple:
     # SiLU and the attention block's norm without
     have = {k: sum(1 for r in rows if r["kernel"] == k
                    and r["route"] != "nchw") for k in KERNELS}
+    TRAIN_F32_ROWS.extend(r for r in rows if r["kernel"] == "flash_attention")
     if (have != {"flash_attention": 1, "groupnorm_silu": 7}
-            or any(r["route"] == "wgmma" for r in rows)):
+            or any(r["route"] != "tf32x3" for r in TRAIN_F32_ROWS)):
         raise AssertionError(f"train: the VAE step's kernel shapes: "
                              f"{have}, bodies "
                              f"{sorted({r['route'] for r in rows})}")
@@ -1551,7 +1669,7 @@ def run_eval_path(models, files, path) -> dict:
             f"after the first batch: {warm:.3f}; the call {wall:.1f} s "
             f"(building and loading included)")
     window.check(name, expected_launches(models, path, batches))
-    return window.launches
+    return counted(window)
 
 
 def check_trainer_fvd(path, trainer, i3d):
@@ -1843,7 +1961,7 @@ def phase_data(workdir) -> dict:
         f"batches) x {enc} an encode")
     name = "train_native_ucf_vae"
     plain, window, steps, batches, ckpt_a = run_native_path(files, name)
-    window.check(name, expected, flash_body="fma")
+    window.check(name, expected, flash_body="tf32x3")
     if (steps, batches) != (train_b, train_b + val_b):
         raise AssertionError(f"{name}: {steps} steps, {batches} batches")
     with socket.socket() as s:          # a free port for the coordinator
@@ -1860,7 +1978,7 @@ def phase_data(workdir) -> dict:
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
-    window2.check(name + "_multihost", expected, flash_body="fma")
+    window2.check(name + "_multihost", expected, flash_body="tf32x3")
     losses = lambda m: {k: v for k, v in m.items() if k.endswith(("_train",
                                                                   "_val"))}
     same = losses(plain) == losses(group) and _same_state(ckpt_a, ckpt_b)
@@ -1873,7 +1991,7 @@ def phase_data(workdir) -> dict:
                              f"{backend}, collectives {reduced}")
     run_text_path(files)
     log(f"data: {time.perf_counter() - t0:.1f} s")
-    return window.launches
+    return counted(window)
 
 
 # The tp phase (phase 10): the three multi-process entry points as four
@@ -2290,6 +2408,7 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
                 shutil.rmtree(res["checkpoint"])
         for res in ranks:
             sigs.update(res["sigs"])
+            BODY_LAUNCHES.update(res["bodies"])
             for k in KERNELS:
                 total[k] += res["launches"][k]
     rows = check_signatures(sigs, (torch.bfloat16, torch.float32),
@@ -2524,6 +2643,16 @@ def main() -> int:
                 sd_files.kill()
                 sd_files.wait()
     log(f"total {time.perf_counter() - t0:.1f} s")
+    by_body = {b: BODY_LAUNCHES.get(b, 0) for b in FLASH_BODIES}
+    if sum(by_body.values()) != launches["flash_attention"]:
+        raise AssertionError(f"flash launches by body {by_body} do not sum "
+                             f"to {launches['flash_attention']}")
+    summary["flash_attention"]["launches_by_body"] = by_body
+    hot32 = max(TRAIN_F32_ROWS, key=lambda r: r["ms"])
+    summary["flash_attention"]["f32"] = {
+        k: hot32[k] for k in ("shape", "route", "max_abs_err", "ms", "fma_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
          **summary[k]} for k in KERNELS]}))

@@ -10,7 +10,8 @@
 // input type. A ragged T is masked (padded keys get -inf logits, padded
 // query rows are never stored) instead of raising.
 //
-// Two bodies, chosen by shape before launch (ops/attention.py:route):
+// Three bodies, chosen by dtype, head dim and alignment before launch
+// (ops/attention.py:route):
 //
 // * flash_fwd_wgmma, bf16 with d % 8 == 0 and 16-byte aligned q, k, v (entry
 //   sdvg_flash_attention_wgmma). Both products on the tensor cores:
@@ -52,15 +53,77 @@
 //   tile's softmax with the next tile's QK^T inside a warpgroup, an explicit
 //   ping-pong between the two warpgroups, TMA stores of the output.
 //
-// * flash_fwd, everything else (f32 always; bf16 with d % 8 != 0 or an
-//   unaligned base pointer, where TMA cannot serve: its row stride must be a
-//   multiple of 16 bytes). f32 FMAs on register tiles fed from shared
-//   memory, no tensor cores: TF32 wgmma would break the f32 tolerance
-//   (1e-4). Per (head, query tile) it streams K/V tiles through shared
-//   memory and keeps the logits tile on chip; each head-dim bucket picks its
-//   query tile so Q, K, V and the logits fit the 227 KB of shared memory.
-//   Shared-memory rows are padded to an odd stride so the column reads of
-//   the two products are free of bank conflicts.
+// * flash_fwd_tf32x3, f32 with d % 4 == 0 and 16-byte aligned q, k, v
+//   (entry sdvg_flash_attention_tf32x3). Both products on the tensor cores
+//   in error-compensated TF32: each f32 operand x is split into big =
+//   tf32(x) and small = tf32(x - big), both rounded to nearest (ties away)
+//   with the 13 low bits cleared, and a product is big * small + small *
+//   big + big * big (small * small dropped), accumulated in f32, as
+//   CUTLASS's OpMultiplyAddFastF32. Against f64 that keeps attention near
+//   1e-7 where one TF32 product leaves 1e-4 (tests/test_torch_attention.py
+//   emulates both, and that dropping any one cross term leaves 4.6e-5 or
+//   more). On the card the error against the plain f32 version is about
+//   1e-5, held to 3e-5; chip_smoke.py sets beside it the same three
+//   products summed by cuBLAS on the tensor cores, which tells the tensor
+//   cores' own f32 accumulation from the body's arithmetic.
+//
+//   Layout. wgmma takes a 32-bit operand from shared memory in K-major form
+//   only, so the kernel never needs a transposed tile:
+//   S = Q K^T is m64n64k8 with A = Q (64 queries x 8 depth) loaded from
+//   the raw TMA tile into registers and split there, B = K from shared
+//   memory (K-major as TMA writes it), split by a warp of the producer
+//   warpgroup (big in place, small in the next box). The output is
+//   computed transposed, O^T += V^T P^T (m64n64k8, M = 64 output columns,
+//   N = 64 queries): A = V^T is read from the raw V tile in A-fragment
+//   order (register i of lane (g, c4) holds row g + 8 (i % 2), column
+//   c4 + 4 (i / 2)) and split in registers, B = P written to shared memory
+//   by the softmax as big and small parts, keys contiguous (K-major). So V
+//   is transposed by where each thread reads it, and P, whose accumulator
+//   layout is not the tf32 A-fragment layout, goes through shared memory in
+//   the one layout B needs. The rescale of O^T and the final division by
+//   the normaliser work per column (query), through a 64-float row of
+//   shared memory.
+//
+//   Pipeline. Three warpgroups: in the first, warp w (0, 1) issues the TMA
+//   loads of consumer w's ring and warp 2 + w splits its K chunks; the
+//   other two consume. A ring slot (24 KB) holds one unit: a QK unit is a
+//   32-column depth chunk of Q (64 rows) and of K (64 keys) with K's small
+//   part; a V unit is a 64-column output block of V (64 keys, two 32-column
+//   boxes); per 64-key tile a consumer takes its QK units, then its V
+//   units. Q comes again from L2 for every key tile. The tensor maps are
+//   3-D (d, T, BH) with 32-column (128-byte) swizzled boxes; rows past T
+//   and columns past d arrive as zeros, so a d between buckets runs in the
+//   next one up on zero columns, and the loops cover d itself (ceil(d / 8)
+//   depth steps, ceil(d / 64) output blocks).
+//
+//   Buckets (each output block is 32 accumulator registers a thread): 40,
+//   80 and 160 give each consumer warpgroup a 64-row query tile of its own
+//   (1, 2, 3 blocks); 512 puts both on one 64-row tile, each with half of
+//   the depth (its partial logits added to the other's through its P area,
+//   between two barriers: a + b = b + a, so both hold the same S) and half
+//   of the output's columns (4 blocks). Shared memory, every bucket: ring
+//   2 x 3 slots x 24 KB = 144 KB, P 2 x (16 + 16) KB = 64 KB, the rows 1 KB
+//   (210 KB with the 1 KB alignment pad), so one block per SM.
+//
+//   What bounds it. Three TF32 products: 3 x 4 BH T^2 d operations at 495
+//   TFLOP/s (an effective 165 TFLOP/s of f32 work against the CUDA cores'
+//   67); chip_smoke.py prints each f32 shape's time against that bound and
+//   beside the FMA body's. The products, not the splits, take most of the
+//   time: 64-key tiles (n64 products) run faster than 32-key ones, and the
+//   split rounds with two integer operations, not the slower conversion
+//   instruction. Not done yet: a consumer that overlaps one tile's softmax
+//   with the next tile's QK^T, Q kept in shared memory where it fits, the
+//   exchange at d = 512 without its second barrier.
+//
+// * flash_fwd, everything else (f32 with d % 4 != 0 or an unaligned base
+//   pointer; bf16 with d % 8 != 0 or an unaligned base pointer), where TMA
+//   cannot serve: its row stride must be a multiple of 16 bytes. f32 FMAs
+//   on register tiles fed from shared memory, no tensor cores. Per (head,
+//   query tile) it streams K/V tiles through shared memory and keeps the
+//   logits tile on chip; each head-dim bucket picks its query tile so Q, K,
+//   V and the logits fit the 227 KB of shared memory. Shared-memory rows
+//   are padded to an odd stride so the column reads of the two products are
+//   free of bank conflicts.
 //
 // The tensor-map encoder cuTensorMapEncodeTiled is a driver function; it is
 // reached through the runtime's cudaGetDriverEntryPoint, so the library
@@ -436,6 +499,65 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Online softmax in base 2 over one tile of 2 N keys, the logits in the
+// m64nN accumulator layout (both tensor-core bodies): element i is row r0
+// = g or r1 = g + 8 of the warp's 16 by (i / 2) % 2, key key0 + 8 (i / 4) +
+// 2 c4 + i % 2. Scales the logits by scale_log2, masks keys past seq,
+// turns them into p in place, updates each row's running max m and this
+// thread's share of its normaliser l (summed across the row's four threads
+// by quad_sum at the end), and returns each row's rescale factor in a0, a1.
+// The tile's first key is always real, so the new max is finite; exp2(-inf)
+// = 0 for the masked keys and for the first tile's rescale.
+template <int N>
+__device__ __forceinline__ void online_softmax(float* sc, int key0, int seq,
+                                               int c4, float scale_log2,
+                                               float& m0, float& m1,
+                                               float& l0, float& l1,
+                                               float& a0, float& a1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = sc[i] * scale_log2;
+    if (key0 + 2 * N > seq && key0 + 8 * (i / 4) + 2 * c4 + (i % 2) >= seq)
+      x = -INFINITY;
+    sc[i] = x;
+    if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
+    else mx0 = fmaxf(mx0, x);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  a0 = ex2(m0 - mn0);
+  a1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if ((i / 2) % 2) {
+      sc[i] = ex2(sc[i] - mn1);
+      rs1 += sc[i];
+    } else {
+      sc[i] = ex2(sc[i] - mn0);
+      rs0 += sc[i];
+    }
+  }
+  l0 = l0 * a0 + rs0;
+  l1 = l1 * a1 + rs1;
+}
+
+// Each row's normaliser: the sum of its four threads' shares.
+__device__ __forceinline__ void quad_sum(float& l0, float& l1) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -563,6 +685,22 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
         "r"(1));
 }
 
+// wgmma.mma_async m64nNk8, f32 += tf32 * tf32, A from registers (4 words
+// a thread), B from shared memory in K-major form (32-bit types have no
+// transpose bit). acc = 0 overwrites d instead of adding to it.
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 #undef F4
 
 template <int N>
@@ -684,42 +822,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs<C::BK / 2>(sc);
 
-      // Online softmax in base 2. The tile's first key is always real, so
-      // the new max is finite; exp2(-inf) = 0 for the masked keys and for
-      // the first tile's rescale.
-      const int key0 = it * C::BK;
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) {
-        float x = sc[i] * scale_log2;
-        if (key0 + C::BK > seq && key0 + 8 * (i / 4) + 2 * c4 + (i % 2) >= seq)
-          x = -INFINITY;
-        sc[i] = x;
-        if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
-        else mx0 = fmaxf(mx0, x);
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) {
-        if ((i / 2) % 2) {
-          sc[i] = ex2(sc[i] - mn1);
-          rs1 += sc[i];
-        } else {
-          sc[i] = ex2(sc[i] - mn0);
-          rs0 += sc[i];
-        }
-      }
-      l0 = l0 * a0 + rs0;   // this thread's columns; summed across the
-      l1 = l1 * a1 + rs1;   // four threads of a row at the end
+      float a0, a1;
+      online_softmax<C::BK / 2>(sc, it * C::BK, seq, c4, scale_log2, m0, m1,
+                                l0, l1, a0, a1);
 #pragma unroll
       for (int i = 0; i < C::NPV / 2; ++i) acc[i] *= ((i / 2) % 2) ? a1 : a0;
       uint32_t pa[C::BK / 16][4];
@@ -746,11 +851,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(bar_free(s));
     }
 
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
+    quad_sum(l0, l1);
     const int row0 = q0 + (C::SPLIT ? 0 : 64 * cw) + 16 * warp + g;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -795,17 +896,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 3-D (d, T, BH) bf16 map with 64-column x `rows` boxes, 128-byte swizzle;
-// out-of-bounds elements (columns past d, rows past T) are read as zero.
+// 3-D (d, T, BH) map of bf16 or f32 elements with boxes of one 128-byte row
+// (64 bf16 or 32 f32 columns) x `rows`, 128-byte swizzle; out-of-bounds
+// elements (columns past d, rows past T) are read as zero.
+template <typename T>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
                      int rows) {
+  constexpr int es = (int)sizeof(T);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kChunk, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * es,
+                                 (cuuint64_t)seq * d * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / es), (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  CUresult r = encode(map, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                       const_cast<void*>(ptr), dims, strides, box, estr,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -818,9 +924,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int bh, int seq, int d, float scale,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, bh, seq, d, 64);
-  if (err == cudaSuccess) err = make_map(&tk, k, bh, seq, d, C::BK);
-  if (err == cudaSuccess) err = make_map(&tv, v, bh, seq, d, C::BK);
+  using B16 = __nv_bfloat16;
+  cudaError_t err = make_map<B16>(&tq, q, bh, seq, d, 64);
+  if (err == cudaSuccess) err = make_map<B16>(&tk, k, bh, seq, d, C::BK);
+  if (err == cudaSuccess) err = make_map<B16>(&tv, v, bh, seq, d, C::BK);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_wgmma<C>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -840,6 +947,421 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
   if (d <= 80) return launch_wgmma<WCfg80>(q, k, v, o, bh, seq, d, scale, s);
   if (d <= 160) return launch_wgmma<WCfg160>(q, k, v, o, bh, seq, d, scale, s);
   return launch_wgmma<WCfg512>(q, k, v, o, bh, seq, d, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores: error-compensated TF32 (3xTF32), TMA + wgmma.
+
+constexpr int kF32Cols = 32;               // f32 columns in a 128-byte row
+constexpr int kXBK = 64;                   // keys per tile
+constexpr int kXBox = 64 * 128;            // one Q, K or V box: 64 rows x 32 cols
+constexpr int kXUnit = 3 * kXBox;          // one ring slot (Q, K big, K small)
+constexpr int kXNS = 3;                    // ring slots a consumer warpgroup
+constexpr int kXP = 2 * kXBox;             // P (big or small): 64 queries x 64 keys
+
+// One head-dim bucket: MB 64-column output blocks per warpgroup; SPLIT =
+// both consumer warpgroups on one 64-row query tile (d > 160), each with
+// half of the QK^T depth (partial logits summed through shared memory) and
+// half of the output's columns; otherwise each has a query tile of its own.
+template <int MB_, bool SPLIT_>
+struct XCfg {
+  static constexpr int MB = MB_;
+  static constexpr bool SPLIT = SPLIT_;
+  static constexpr int BQ = SPLIT ? 64 : 128;
+  static constexpr int P_OFF = 2 * kXNS * kXUnit;    // [wg][big, small]
+  static constexpr int ROW_OFF = P_OFF + 2 * 2 * kXP;
+  static constexpr int SMEM = 1024 + ROW_OFF + 2 * 2 * 64 * 4;  // [wg][parity]
+  static_assert(SMEM + 3 * 2 * kXNS * 8 <= 232448,
+                "fits the 227 KB of shared memory a block may use");
+};
+
+//                   MB  SPLIT
+using XCfg40  = XCfg<1,  false>;   // UNet 512px level 0
+using XCfg80  = XCfg<2,  false>;   // UNet level 1
+using XCfg160 = XCfg<3,  false>;   // UNet levels 2 and mid
+using XCfg512 = XCfg<4,  true>;    // VAE mid block
+
+// TF32 of x, rounded to nearest with ties away from zero, as the f32 word
+// with its 13 low bits clear: the value cvt.rna.tf32.f32 gives (for finite
+// x), by two integer operations, which run faster here than the conversion
+// instruction; the clear bits make the word exact whatever the tensor cores
+// would do with them.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + O(2^-22 |x|): big = tf32(x), small = tf32(x - big).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Byte offset of (row, 32-bit column) in a 1024-byte aligned tile of
+// 128-byte rows in TMA's 128-byte swizzle: the 16-byte piece index XOR the
+// row's index within its 8-row group.
+__device__ __forceinline__ uint32_t sw128_off(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ (row & 7)) << 4) | ((col & 3) << 2));
+}
+
+// Register i (0..3) of the m64k8 tf32 A fragment of lane (g = lane / 4,
+// c4 = lane % 4) holds row g + 8 (i % 2), column c4 + 4 (i / 2) of its
+// warp's 16 x 8 slice.
+__device__ __forceinline__ int afrag_row(int i, int g) { return g + 8 * (i & 1); }
+__device__ __forceinline__ int afrag_col(int i, int c4) { return c4 + 4 * (i >> 1); }
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// What warpgroup w of a block does with d: depth chunks [c0, c0 + nc) of
+// 32 columns for QK^T, output blocks [m0, m0 + nm) of 64 columns, its
+// queries from row qrow; per key tile nc QK units, then nm V units.
+struct XPlan {
+  int c0, nc, m0, nm, qrow;
+};
+
+template <class C>
+__device__ __forceinline__ XPlan x_plan(int w, int d) {
+  const int nch = (d + kF32Cols - 1) / kF32Cols, nmb = (d + 63) / 64;
+  XPlan p;
+  if (C::SPLIT) {
+    const int hc = (nch + 1) / 2, hm = (nmb + 1) / 2;
+    p.c0 = w ? hc : 0;
+    p.nc = w ? nch - hc : hc;
+    p.m0 = w ? hm : 0;
+    p.nm = w ? nmb - hm : hm;
+    p.qrow = blockIdx.x * C::BQ;
+  } else {
+    p.c0 = 0;
+    p.nc = nch;
+    p.m0 = 0;
+    p.nm = nmb;
+    p.qrow = blockIdx.x * C::BQ + 64 * w;
+  }
+  return p;
+}
+
+// grid = (ceil(T / BQ), BH); block = 384 threads; dynamic smem = C::SMEM.
+// Warpgroup 0: warp w (0, 1) issues the TMA loads of consumer w's ring,
+// warp 2 + w splits its K chunks into TF32 big and small parts. Warpgroups
+// 1 and 2 consume. scale_log2 = scale * log2(e).
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 float* __restrict__ o, int seq, int d, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  // bars: [s] slot s loaded (TMA); [2 NS + s] slot s ready (its K chunk
+  // split; passed through for V); [4 NS + s] slot s free (one arrival per
+  // consumer warp). Slots [w NS, (w + 1) NS) are warpgroup w's.
+  __shared__ __align__(8) uint64_t bars[3 * 2 * kXNS];
+  unsigned char* gen = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(gen);
+  auto bar_full = [&](int s) { return smem_u32(&bars[s]); };
+  auto bar_ready = [&](int s) { return smem_u32(&bars[2 * kXNS + s]); };
+  auto bar_free = [&](int s) { return smem_u32(&bars[4 * kXNS + s]); };
+
+  const int tid = threadIdx.x, head = blockIdx.y;
+  const int ntiles = (seq + kXBK - 1) / kXBK;
+  if (tid == 0) {
+    for (int s = 0; s < 2 * kXNS; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_ready(s), 1);
+      mbar_init(bar_free(s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int warp = tid / 32, lane = tid % 32, w = warp % 2;
+    const XPlan pl = x_plan<C>(w, d);
+    if (pl.qrow >= seq) return;        // a second query tile past the end
+    const int per_tile = pl.nc + pl.nm;
+    if (warp < 2) {
+      // Producer of warpgroup w's ring. The first wait on each free barrier
+      // passes at once (parity of the phase before the first).
+      if (lane != 0) return;
+      int u = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        for (int j = 0; j < per_tile; ++j, ++u) {
+          const int s = w * kXNS + u % kXNS;
+          const uint32_t ph = (u / kXNS) & 1;
+          const uint32_t slot = base + s * kXUnit;
+          mbar_wait(bar_free(s), ph ^ 1);
+          if (j < pl.nc) {
+            const int col = kF32Cols * (pl.c0 + j);
+            mbar_expect_tx(bar_full(s), 2 * kXBox);
+            tma_load(slot, &tq, col, pl.qrow, head, bar_full(s));
+            tma_load(slot + kXBox, &tk, col, t * kXBK, head, bar_full(s));
+          } else {
+            // one 64-column output block as two 32-column boxes; a box
+            // wholly past d is not loaded (its rows feed output columns
+            // that are never stored)
+            const int col = 64 * (pl.m0 + j - pl.nc);
+            const int nbox = col + 32 < d ? 2 : 1;
+            mbar_expect_tx(bar_full(s), nbox * kXBox);
+            for (int b = 0; b < nbox; ++b)
+              tma_load(slot + b * kXBox, &tv, col + 32 * b, t * kXBK, head,
+                       bar_full(s));
+          }
+        }
+      }
+    } else {
+      // Splitter of warpgroup w's ring: each K chunk (64 keys x 32 columns)
+      // becomes big (in place) and small (the next box), element by element
+      // at the same swizzled offsets.
+      int u = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        for (int j = 0; j < per_tile; ++j, ++u) {
+          const int s = w * kXNS + u % kXNS;
+          const uint32_t ph = (u / kXNS) & 1;
+          mbar_wait(bar_full(s), ph);
+          if (j < pl.nc) {
+            float4* kb = reinterpret_cast<float4*>(gen + s * kXUnit + kXBox);
+            float4* ks = kb + kXBox / 16;
+#pragma unroll 2
+            for (int i = lane; i < kXBox / 16; i += 32) {
+              const float4 x = kb[i];
+              uint4 b, sm;
+              split_tf32(x.x, b.x, sm.x);
+              split_tf32(x.y, b.y, sm.y);
+              split_tf32(x.z, b.z, sm.z);
+              split_tf32(x.w, b.w, sm.w);
+              kb[i] = *reinterpret_cast<float4*>(&b);
+              ks[i] = *reinterpret_cast<float4*>(&sm);
+            }
+            fence_proxy_async();
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_ready(s));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int w = tid / 128 - 1;                // consumer warpgroup 0 or 1
+    const int t128 = tid % 128, warp = t128 / 32, lane = t128 % 32;
+    const int g = lane / 4, c4 = lane % 4;
+    const XPlan pl = x_plan<C>(w, d);
+    if (pl.qrow >= seq) return;
+    const uint32_t p_big = base + C::P_OFF + w * 2 * kXP, p_small = p_big + kXP;
+    unsigned char* p_gen = gen + C::P_OFF + w * 2 * kXP;
+    float* rows = reinterpret_cast<float*>(gen + C::ROW_OFF) + w * 2 * 64;
+    const int r0 = 16 * warp + g, r1 = r0 + 8;   // this thread's S rows
+
+    float acc[C::MB][32];
+#pragma unroll
+    for (int mb = 0; mb < C::MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mb][i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    int u = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      // S = Q K^T over this warpgroup's depth chunks: three wgmma per 8
+      // columns, small terms first, A (Q) split in registers.
+      float sc[32];
+      for (int j = 0; j < pl.nc; ++j, ++u) {
+        const int s = w * kXNS + u % kXNS;
+        const uint32_t ph = (u / kXNS) & 1;
+        const uint32_t slot = base + s * kXUnit;
+        const unsigned char* qg = gen + s * kXUnit;
+        const int left = d - kF32Cols * (pl.c0 + j);
+        const int nks = left >= 32 ? 4 : (left + 7) / 8;
+        uint32_t qb[4][4], qs[4][4];
+        mbar_wait(bar_full(s), ph);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = *reinterpret_cast<const float*>(
+                qg + sw128_off(16 * warp + afrag_row(i, g),
+                               8 * kk + afrag_col(i, c4)));
+            split_tf32(x, qb[kk][i], qs[kk][i]);
+          }
+        mbar_wait(bar_ready(s), ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk < nks) {
+            const uint64_t kb = sw128_desc(slot + kXBox + 32 * kk, 16);
+            const uint64_t ks = sw128_desc(slot + 2 * kXBox + 32 * kk, 16);
+            wgmma_tf32_n64(sc, qb[kk], ks, j > 0 || kk > 0);
+            wgmma_tf32_n64(sc, qs[kk], kb, 1);
+            wgmma_tf32_n64(sc, qb[kk], kb, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<32>(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_free(s));
+      }
+      if (C::SPLIT) {
+        // The two halves of the depth: each warpgroup adds the other's
+        // partial logits to its own (a + b = b + a: both hold the same S),
+        // passed through its P area, free until the second barrier.
+        float* mine = reinterpret_cast<float*>(p_gen);
+        const float* other = reinterpret_cast<const float*>(
+            gen + C::P_OFF + (1 - w) * 2 * kXP);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mine[i * 128 + t128] = sc[i];
+        named_bar_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] += other[i * 128 + t128];
+        named_bar_sync(1, 256);
+      }
+
+      float a0, a1;
+      online_softmax<32>(sc, t * kXBK, seq, c4, scale_log2, m0, m1, l0, l1,
+                         a0, a1);
+
+      // P (64 queries x 64 keys: two 32-key boxes) to shared memory as big
+      // and small parts, K-major for O^T += V^T P^T; each row's rescale
+      // beside it.
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = h ? r1 : r0, key = 8 * (jj % 4) + 2 * c4;
+          const uint32_t off = (jj / 4) * kXBox + sw128_off(r, key);
+          uint2 b, sm;
+          split_tf32(sc[4 * jj + 2 * h], b.x, sm.x);
+          split_tf32(sc[4 * jj + 2 * h + 1], b.y, sm.y);
+          *reinterpret_cast<uint2*>(p_gen + off) = b;
+          *reinterpret_cast<uint2*>(p_gen + kXP + off) = sm;
+        }
+      float* alpha = rows + (t & 1) * 64;
+      if (c4 == 0) {
+        alpha[r0] = a0;
+        alpha[r1] = a1;
+      }
+      fence_proxy_async();
+      named_bar_sync(2 + w, 128);
+
+      // O^T (columns x queries) *= alpha of each query, then O^T += V^T P^T:
+      // A (V^T) split in registers from the raw V boxes, B = P.
+      float al[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        al[2 * jj] = alpha[8 * jj + 2 * c4];
+        al[2 * jj + 1] = alpha[8 * jj + 2 * c4 + 1];
+      }
+#pragma unroll
+      for (int mb = 0; mb < C::MB; ++mb)
+        if (mb < pl.nm)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[mb][i] *= al[2 * (i / 4) + (i % 2)];
+
+#pragma unroll
+      for (int mb = 0; mb < C::MB; ++mb) {
+        if (mb < pl.nm) {
+          const int s = w * kXNS + u % kXNS;
+          const uint32_t ph = (u / kXNS) & 1;
+          mbar_wait(bar_full(s), ph);
+          mbar_wait(bar_ready(s), ph);
+          // this warp's 16 output columns of the block lie in one box
+          const unsigned char* vg = gen + s * kXUnit + (warp / 2) * kXBox;
+          fence_regs<32>(acc[mb]);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {   // keys [32 half, +32)
+            uint32_t vb[4][4], vs[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float x = *reinterpret_cast<const float*>(
+                    vg + sw128_off(32 * half + 8 * kk + afrag_col(i, c4),
+                                   16 * (warp % 2) + afrag_row(i, g)));
+                split_tf32(x, vb[kk][i], vs[kk][i]);
+              }
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint32_t po = half * kXBox + 32 * kk;
+              const uint64_t pb = sw128_desc(p_big + po, 16);
+              const uint64_t ps = sw128_desc(p_small + po, 16);
+              wgmma_tf32_n64(acc[mb], vb[kk], ps, 1);
+              wgmma_tf32_n64(acc[mb], vs[kk], pb, 1);
+              wgmma_tf32_n64(acc[mb], vb[kk], pb, 1);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs<32>(acc[mb]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_free(s));
+          ++u;
+        }
+      }
+    }
+
+    // Normaliser of each query, then O = O^T^T / l, written once.
+    quad_sum(l0, l1);
+    float* lrow = rows + (ntiles & 1) * 64;
+    if (c4 == 0) {
+      lrow[r0] = l0;
+      lrow[r1] = l1;
+    }
+    named_bar_sync(2 + w, 128);
+    float li[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      li[2 * jj] = lrow[8 * jj + 2 * c4];
+      li[2 * jj + 1] = lrow[8 * jj + 2 * c4 + 1];
+    }
+#pragma unroll
+    for (int mb = 0; mb < C::MB; ++mb) {
+      if (mb >= pl.nm) continue;
+      const int col0 = 64 * (pl.m0 + mb) + 16 * warp + g;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = col0 + 8 * ((i / 2) % 2);
+        const int row = pl.qrow + 8 * (i / 4) + 2 * c4 + (i % 2);
+        if (col < d && row < seq)
+          o[((size_t)head * seq + row) * d + col] =
+              acc[mb][i] / li[2 * (i / 4) + (i % 2)];
+      }
+    }
+  }
+}
+
+template <class C>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o,
+                          int bh, int seq, int d, float scale,
+                          cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map<float>(&tq, q, bh, seq, d, 64);
+  if (err == cudaSuccess) err = make_map<float>(&tk, k, bh, seq, d, kXBK);
+  if (err == cudaSuccess) err = make_map<float>(&tv, v, bh, seq, d, kXBK);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_tf32x3<C>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + C::BQ - 1) / C::BQ, bh);
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(tq, tk, tv, static_cast<float*>(o),
+                                              seq, d, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tf32x3(const void* q, const void* k, const void* v,
+                            void* o, int bh, int seq, int d, float scale,
+                            cudaStream_t s) {
+  if (d <= 40) return launch_tf32x3<XCfg40>(q, k, v, o, bh, seq, d, scale, s);
+  if (d <= 80) return launch_tf32x3<XCfg80>(q, k, v, o, bh, seq, d, scale, s);
+  if (d <= 160) return launch_tf32x3<XCfg160>(q, k, v, o, bh, seq, d, scale, s);
+  return launch_tf32x3<XCfg512>(q, k, v, o, bh, seq, d, scale, s);
 }
 
 }  // namespace
@@ -875,6 +1397,22 @@ int sdvg_flash_attention_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaErrorMisalignedAddress;
   return (int)dispatch_wgmma(q, k, v, o, bh, seq, d, scale,
                              static_cast<cudaStream_t>(stream));
+}
+
+// The f32 tensor-core body (3xTF32): float32 only, d a multiple of 4
+// (4..512), q, k, v 16-byte aligned. Anything else is refused, not
+// rerouted: the caller picks the body (ops/attention.py:route).
+int sdvg_flash_attention_tf32x3(const void* q, const void* k, const void* v,
+                                void* o, int bh, int seq, int d, float scale,
+                                void* stream) {
+  if (bh < 1 || bh > 65535 || seq < 1 || d < 4 || d > 512 || d % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(o) % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  return (int)dispatch_tf32x3(q, k, v, o, bh, seq, d, scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* sdvg_error_string(int err) {

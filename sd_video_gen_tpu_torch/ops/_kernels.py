@@ -183,6 +183,9 @@ def library() -> ctypes.CDLL:
             lib.sdvg_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i,
                                                        ctypes.c_float, p]
             lib.sdvg_flash_attention_wgmma.restype = i
+            lib.sdvg_flash_attention_tf32x3.argtypes = [p, p, p, p, i, i, i,
+                                                        ctypes.c_float, p]
+            lib.sdvg_flash_attention_tf32x3.restype = i
             ll = ctypes.c_longlong
             lib.sdvg_groupnorm_silu_workspace.argtypes = [i, i, ll, i]
             lib.sdvg_groupnorm_silu_workspace.restype = ll

@@ -5,8 +5,9 @@ spatial self-attention (up to 4096 tokens at 512px) go through
 ``flash_attention``, which launches ``csrc/flash_attention.cu`` (online
 softmax over key tiles, O(T) memory); ``reference_attention`` is the plain
 einsum -> f32 softmax -> einsum version it is held against. ``route`` picks
-the kernel's body by shape before launch: the tensor-core body (wgmma + TMA)
-for bf16 where TMA can serve, the f32-FMA body otherwise.
+the kernel's body by shape before launch: a tensor-core body (wgmma + TMA)
+where TMA can serve (bf16, or f32 as three TF32 products), the FMA body
+otherwise.
 
 Dispatch (``attention``): CPU tensors take the plain version; CUDA tensors
 with ``q.shape == k.shape`` always take the kernel. Cross-attention (77
@@ -50,14 +51,19 @@ TP_ROUTES: collections.Counter = collections.Counter()
 
 
 def route(dtype, d: int, data_ptrs) -> str:
-    """The kernel body for (dtype, head dim, q/k/v data pointers): ``"wgmma"``
-    (tensor cores, TMA loads) for bf16 with d a multiple of 8 and every
-    pointer 16-byte aligned, which TMA needs (its row stride must be a
-    multiple of 16 bytes); ``"fma"`` for everything else, f32 included
-    (TF32 tensor cores would break the f32 tolerance)."""
-    if (dtype == torch.bfloat16 and d % 8 == 0
-            and all(p % 16 == 0 for p in data_ptrs)):
-        return "wgmma"
+    """The kernel body for (dtype, head dim, q/k/v data pointers), where
+    TMA can serve (its row stride must be a multiple of 16 bytes, its
+    pointers 16-byte aligned): ``"wgmma"`` (bf16 on the tensor cores) for
+    bf16 with d a multiple of 8; ``"tf32x3"`` (f32 on the tensor cores as
+    three TF32 products, big * big + big * small + small * big, each
+    operand split into a TF32 big part and a TF32 small part: within the
+    f32 tolerance, where one TF32 product is not) for f32 with d a multiple
+    of 4; ``"fma"`` (f32 FMAs, no tensor cores) for everything else."""
+    if all(p % 16 == 0 for p in data_ptrs):
+        if dtype == torch.bfloat16 and d % 8 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and d % 4 == 0:
+            return "tf32x3"
     return "fma"
 
 
@@ -98,8 +104,8 @@ def flash_attention(q, k, v, scale: float | None = None):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if body == "wgmma":
-            err = lib.sdvg_flash_attention_wgmma(
+        if body in ("wgmma", "tf32x3"):
+            err = getattr(lib, f"sdvg_flash_attention_{body}")(
                 *ptrs, out.data_ptr(), BH, T, d, float(scale), stream)
         else:
             err = lib.sdvg_flash_attention(
