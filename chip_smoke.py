@@ -91,9 +91,10 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               are made from seeds in a temporary directory (a Moving-MNIST
               ``.npy``, the config as JSON, the flagship transformer written
               with the port's checkpoint writer, the SD-v1.4 VAE and UNet
-              from ``tools/synthetic_checkpoint.py`` in fp16, the CLIP text
-              encoder and a seeded I3D as ``.pt``); ``fvd_native_ar4``
-              (``evaluation/predict_fvd.main``: 16 clips in batches of 8, 4
+              from the port's ``tools/synthetic_checkpoint.py`` in fp16,
+              the CLIP text encoder and a seeded I3D as ``.pt``);
+              ``fvd_native_ar4`` (``evaluation/predict_fvd.main``: 16
+              clips in batches of 8, 4
               predicted frames refined on the native latent grid from DDIM
               step 48, I3D at 224px in f32, streaming FVD) and
               ``predict_cli_denoise_ar4`` (``predict/predict.main``: the same
@@ -143,21 +144,40 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               every rank). Launches per rank exact (the ring's calls run
               no kernel), every per-rank kernel signature held against the
               plain version in bf16 and f32, the bodies those of phase 8
- 11. profile  only with ``--profile``: one warm batch of four paths under
+ 11. quality  the port's quality evidence through the tools' ``main``, at
+              their defaults on a seeded Moving-MNIST-layout stand-in
+              (``--dataset mnist``: no cv2 here): ``tools/quality_modes``
+              trains ``ar``, ``diff`` and ``future`` (20 epochs, dim 1024)
+              and scores each against the Identity baseline with the FVD
+              CLI; each must beat it on FVD and MSE (what each rollout holds
+              is printed beside: mean level, share of lit pixels);
+              ``future``'s parameters against ``ar``'s; then
+              ``tools/dpmpp_quality_gate``: Phase A, the FVD CLI on the
+              trained ``ar`` model with no refiner, the DDIM-10 tail and
+              the DPM-Solver++ tails of 5 and 4 calls (bf16, native grid;
+              each dpmpp arm within 15% of DDIM-10), Phase B, the drift of
+              those tails against fine-step truths through the f32 UNet and
+              VAE decode at 512px, 8 clips (264 UNet calls; each dpmpp arm
+              within 1.2x of DDIM-10's distance from the truth); exact
+              launches by body (``wgmma`` for Phase A, ``tf32x3`` for Phase
+              B, every GroupNorm ``nhwc``); the gate's kernel shapes (one
+              UNet call of each phase, Phase B's decode) join phase 3's dry
+              run
+ 12. profile  only with ``--profile``: one warm batch of four paths under
               torch.profiler, device time bucketed by kernel name; the two
               unprofiled batches of every path, whose walls give the idle
               share, all run before the first trace
- 12. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 13. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
 
 The line before the last lists the kernels as JSON (flash attention's entry
 also gives its main-path launches by body and the f32 training shape's
-row); the last line is ``{"ok": true, "device": {...}}``. TF32 is switched
-off for cuDNN and matmul so every f32 comparison runs in full f32 (the
-kernel's f32 body splits its operands itself: its TF32 products carry f32
-accuracy).
+row); the last line is ``{"ok": true, "device": {...}}``. TF32 is off for
+cuDNN and matmul (``config.strict_f32``, what every entry point of the port
+sets), so every f32 comparison runs in full f32 (the kernel's f32 body
+splits its operands itself: its TF32 products carry f32 accuracy).
 """
 
 from __future__ import annotations
@@ -185,7 +205,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.codecs import PixelCodec
-from sd_video_gen_tpu_torch.config import Config
+from sd_video_gen_tpu_torch.config import (Config, load_config, strict_f32,
+                                           write_config)
 from sd_video_gen_tpu_torch.data import MovingMNISTDataset
 from sd_video_gen_tpu_torch.data import native_loader
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
@@ -217,6 +238,8 @@ from sd_video_gen_tpu_torch.parallel import multihost
 from sd_video_gen_tpu_torch.predict import predict as P
 from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
+from sd_video_gen_tpu_torch.tools import dpmpp_quality_gate as G
+from sd_video_gen_tpu_torch.tools import quality_modes as Q
 from sd_video_gen_tpu_torch.train.checkpoint import (checkpoint_path,
                                                      save_checkpoint)
 from sd_video_gen_tpu_torch.train import trainer as T
@@ -633,9 +656,13 @@ def path_signatures(models):
 
 
 def merge_signatures(counters) -> collections.Counter:
+    """The calls of several dry runs by (kernel, signature), the dtype a
+    path handed left out (``None``): phase 3 checks every shape in bf16 and
+    f32 alike."""
     merged = collections.Counter()
     for calls in counters:
-        merged.update(calls)
+        for (name, sig), n in calls.items():
+            merged[(name, (sig[0], None, *sig[2:]))] += n
     return merged
 
 
@@ -963,18 +990,23 @@ class launch_window:
         self.gn_bodies = dict(gn.ROUTE_LAUNCHES)
         return False
 
-    def check(self, name: str, expected: dict, flash_body: str = "wgmma"):
+    def check(self, name: str, expected: dict, flash_body="wgmma"):
         """Exact counts, every GroupNorm launch on the NHWC body and every
         flash launch on ``flash_body``: the bf16 tensor-core body on the
-        serving paths, the f32 one (tf32x3) in the f32 training step."""
+        serving paths, the f32 one (tf32x3) in the f32 training step; or,
+        where a window runs both, ``flash_body`` is the exact launches by
+        body."""
         log(f"{name}: launches {self.launches}; flash attention by body "
             f"{self.bodies}; GroupNorm by body {self.gn_bodies}")
         if self.gn_bodies.get("nhwc", 0) != self.launches["groupnorm_silu"]:
             raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
                                  f"{self.gn_bodies}")
-        if self.bodies.get(flash_body, 0) != self.launches["flash_attention"]:
-            raise AssertionError(f"{name}: flash attention left the "
-                                 f"{flash_body} body: {self.bodies}")
+        bodies = (flash_body if isinstance(flash_body, dict) else
+                  {flash_body: self.launches["flash_attention"]})
+        nonzero = lambda d: {b: n for b, n in d.items() if n}
+        if nonzero(self.bodies) != nonzero(bodies):
+            raise AssertionError(f"{name}: flash attention by body "
+                                 f"{self.bodies}, the path implies {bodies}")
         for kernel, want in expected.items():
             if self.launches[kernel] != want:
                 raise AssertionError(
@@ -1511,27 +1543,16 @@ def phase_train(models, workdir) -> tuple:
     return total, flagship
 
 
-# The full-size SD-v1.4 VAE (diffusers' current names) and UNet weight files
-# of tools/synthetic_checkpoint.py, fp16, written to the directory argv[1].
-_SD_FILES = """
-import sys
-import numpy as np
-import torch
-sys.path.insert(0, "tools")
-from synthetic_checkpoint import unet_state_dict, vae_state_dict
-for name, make in (("vae", lambda: vae_state_dict("modern", np.float16, 0)),
-                   ("unet", lambda: unet_state_dict(np.float16, 1))):
-    torch.save({k: torch.from_numpy(v) for k, v in make().items()},
-               f"{sys.argv[1]}/{name}.pt")
-"""
-
-
 def start_sd_weight_files(workdir) -> subprocess.Popen:
-    """Write the SD VAE and UNet weight files in a process of their own,
-    started before the first phase: numpy draws their 943M numbers on the
-    host for tens of seconds, while the earlier phases run."""
-    return subprocess.Popen([sys.executable, "-c", _SD_FILES, workdir],
-                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    """Write the SD VAE and UNet weight files (the port's
+    ``tools/synthetic_checkpoint.py``: full-size SD-v1.4 names, fp16) in a
+    process of their own, started before the first phase: numpy draws their
+    943M numbers on the host for tens of seconds, while the earlier phases
+    run."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "sd_video_gen_tpu_torch.tools."
+         "synthetic_checkpoint", workdir],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
 def eval_files(models, workdir) -> dict:
@@ -1541,9 +1562,8 @@ def eval_files(models, workdir) -> dict:
     promised either), the flagship transformer of phase 3 written with the
     port's checkpoint writer, the seeded I3D as a ``pytorch_i3d``-layout
     ``.pt`` and the CLIP text encoder of phase 3 in ``transformers``' layout
-    (``tools/synthetic_checkpoint.py`` builds CLIP through ``transformers``,
-    which the card's machine lacks). The SD VAE and UNet files come from
-    ``start_sd_weight_files``."""
+    (``transformers`` is not on the card's machine). The SD VAE and UNet
+    files come from ``start_sd_weight_files``."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(11)
     # (T, N, 64, 64): a bright square moving across each sequence
@@ -2043,22 +2063,6 @@ TP_FVD_RTOL, TP_MSE_RTOL = 5e-2, 2e-2
 TP_LOSS_RTOL, TP_MOMENT_REL_L2, TP_LAST_MOMENT_REL_L2 = 1e-4, 1e-4, 5e-2
 
 
-def _yml_value(v) -> str:
-    """YAML 1.1 reads 1e-05 as a string: floats in exponent form need a
-    mantissa with a point (1.0e-05) for both JSON and PyYAML."""
-    if isinstance(v, list):
-        return "[" + ", ".join(_yml_value(x) for x in v) + "]"
-    if isinstance(v, float) and "e" in repr(v):
-        return f"{v:.1e}"
-    return json.dumps(v)
-
-
-def write_config(path: str, values: dict) -> None:
-    with open(path, "w") as f:
-        f.write("{" + ", ".join(f"{json.dumps(k)}: {_yml_value(v)}"
-                                for k, v in values.items()) + "}")
-
-
 def tp_argv(run, files, data_dir) -> list:
     """The entry point's command line; the mesh comes on top."""
     if run["entry"] == "predict":
@@ -2165,8 +2169,7 @@ def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
     counts at 0, and saves what it saw, its launches and the kernel
     signatures it handed the dispatchers."""
     from sd_video_gen_tpu_torch.ops.attention import TP_ROUTES
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_f32()
     with open(job) as f:
         run, argv = json.load(f)
     multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
@@ -2418,6 +2421,182 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
         f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
     return total
 
+
+# The quality phase (phase 11): the port's two quality tools at their
+# defaults (20 epochs, 14 clips in batches of 7, Phase B at 8 clips of
+# 512px) on the Moving-MNIST-layout stand-in (``--dataset mnist``: no cv2
+# on the card's machine, so neither the PNG tree nor the text mode).
+QUALITY_MODES = ("ar", "diff", "future")
+QUALITY_DRIFT_BATCH = 8
+
+
+def quality_fvd_batches() -> list:
+    """The clips of each batch the FVD CLI takes from the stand-in's test
+    split (the last 20% of its sequences, one clip each) in the quality
+    tools' protocol."""
+    seqs = Q.MNIST_SHAPE[0]
+    clips = min(seqs - int(seqs * 0.8), G.FVD_CLIPS)
+    return [min(G.FVD_BATCH, clips - i) for i in range(0, clips, G.FVD_BATCH)]
+
+
+def quality_signatures(models) -> dict:
+    """Every (kernel, signature) the quality gate hands the dispatchers, by
+    phase: a dry run with the plain versions of one UNet call at each of
+    Phase A's batches (its bf16 native-grid refiner on the tools' 64px
+    frames: 8 x 8 latents; every call has the same shapes) and of one f32
+    UNet call and VAE decode at Phase B's 512px batch. The quality modes'
+    training and FVD reach no kernel (PixelCodec, no refiner)."""
+    by_phase, hw = {}, Q.BALL_CFG["FRAME_SIZE"] // 8
+    pipe = SDPipeline(models["vae"], models["unet"], models["clip"])
+    pipe32 = G.drift_pipeline("cuda")
+    lat, _ = G.drift_inputs(QUALITY_DRIFT_BATCH, "cuda")
+    with _kernels.force_reference(), torch.inference_mode():
+        emb = pipe.uncond_embeddings(1)[:1]
+        with _kernels.record_calls() as rec:
+            for b in set(quality_fvd_batches()):
+                pipe._unet_eps(torch.zeros(b, 4, hw, hw, device="cuda"),
+                               500.0, emb.expand(2 * b, -1, -1), 0.0)
+        by_phase["dpmpp_gate_fvd"] = rec.calls
+        with _kernels.record_calls() as rec:
+            pipe32._unet_eps(lat, 500.0, pipe32.uncond_embeddings(1)[:1]
+                             .expand(2 * len(lat), -1, -1), 0.0)
+            pipe32.vae.decode(lat)
+        by_phase["dpmpp_gate_drift_512"] = rec.calls
+    del pipe32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    merged = merge_signatures(by_phase.values())
+    log(f"kernel: dry run of the quality gate's two phases (plain versions): "
+        f"{ {k: sum(1 for n, _ in merged if n == k) for k in KERNELS} } "
+        f"distinct signatures")
+    return by_phase
+
+
+def expected_quality_launches(models) -> tuple[dict, dict]:
+    """The quality gate's launches by kernel body, from the models'
+    structure: Phase A's three refined arms (DDIM from step 40 of 50: 10
+    UNet calls a frame; dpmpp 5 and 4) over 4 predicted frames a batch, bf16
+    (``wgmma``); Phase B's 264 f32 UNet calls (dpmpp 64, DDIM 10, DDIM 181,
+    dpmpp 5, dpmpp 4) and 3 VAE decodes (``tf32x3``); every GroupNorm on
+    the NHWC body."""
+    (_, dec_k1, unet_k1), (_, dec_k2, unet_k2) = (
+        passes_per_model(models)[k] for k in KERNELS)
+    tail = DDIMSchedule(DDIM_STEPS).n_steps - 40
+    fvd_calls = (tail + sum(G.DPMPP_STEPS)) * 4 * len(quality_fvd_batches())
+    drift_calls = 64 + tail + (1000 - 819) + sum(G.DPMPP_STEPS)
+    decodes = 1 + len(G.DPMPP_STEPS)
+    bodies = {"wgmma": fvd_calls * unet_k1,
+              "tf32x3": drift_calls * unet_k1 + decodes * dec_k1}
+    log(f"quality: expected UNet calls {fvd_calls} bf16 (Phase A) + "
+        f"{drift_calls} f32 and {decodes} f32 VAE decodes (Phase B): flash "
+        f"attention by body {bodies}")
+    return {"flash_attention": sum(bodies.values()),
+            "groupnorm_silu": (fvd_calls + drift_calls) * unet_k2
+            + decodes * dec_k2}, bodies
+
+
+def _params_distance(path_a, path_b) -> tuple:
+    """(largest |a - b|, relative L2) over the parameters two checkpoint
+    directories share, and the names only one of them has."""
+    a, b = (torch.load(os.path.join(p, "state.pt"), map_location="cpu",
+                       weights_only=True)["params"] for p in (path_a, path_b))
+    shared = sorted(set(a) & set(b))
+    diff = max(float((a[k].double() - b[k].double()).abs().max())
+               for k in shared)
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in shared)
+    den = sum(float(a[k].double().square().sum()) for k in shared)
+    return diff, (num / den) ** 0.5, sorted(set(a) ^ set(b))
+
+
+@torch.inference_mode()
+def rollout_levels(scratch, mode, device="cuda") -> str:
+    """What a trained quality mode predicts for the FVD CLI's test clips (4
+    frames from 5): the mean pixel level and the share of pixels above 0,
+    against the ground truth's. The gate's scores say how far the
+    predictions are from the truth; these say whether they hold anything."""
+    cfg = load_config(Q.CONFIG, os.path.join(scratch, mode, "configs"))
+    args = argparse.Namespace(
+        naive=False, train_mode=mode, reference_pe=False, config=Q.CONFIG,
+        checkpoint_dir=os.path.join(scratch, mode, "checkpoints"), index=0,
+        mode="test", torch_checkpoint=None, codec="pixel", vae_weights=None)
+    codec = P.build_codec(cfg, args, device)
+    predict = make_predict_fn(P.build_model(cfg, args, device), codec, 4,
+                              window=cfg.frames_per_clip, mode=mode,
+                              future_horizon=cfg.frames_to_predict)
+    data = MovingMNISTDataset(cfg.frames_per_clip + 4, cfg.stride,
+                              os.path.join(scratch, "mnist.npy"), "test",
+                              seed=0)
+    clips = torch.from_numpy(np.stack([data[i][1] for i in range(len(data))]))
+    _, preds = predict(clips[:, :cfg.frames_per_clip].to(device))
+    got = codec.decode_latents(preds.reshape(-1, preds.shape[-1])).float()
+    truth = clips[:, cfg.frames_per_clip:].float()
+    return (f"predicted frames: mean level {got.mean():.3f}, "
+            f"{(got > 0).float().mean():.4f} of pixels above 0; the truth's "
+            f"{truth.mean():.3f} and {(truth > 0).float().mean():.4f}")
+
+
+def phase_quality(models, workdir) -> dict:
+    """The quality tools through their ``main``: each mode trained and
+    scored against Identity, then both phases of the dpmpp gate; every gate
+    must pass; exact launches by body. Returns the launches."""
+    t0 = time.perf_counter()
+    scratch = os.path.join(workdir, "quality")
+    argv = ["--dataset", "mnist", "--scratch", scratch]
+    with launch_window() as window:               # the main path
+        rc = Q.main(argv + ["--modes", ",".join(QUALITY_MODES)])
+    modes_s = time.perf_counter() - t0
+    window.check("quality_modes", {k: 0 for k in KERNELS})
+    total = dict(counted(window))
+    with open(os.path.join(scratch, "quality_modes.json")) as f:
+        results = json.load(f)
+    for mode in QUALITY_MODES:
+        e = results[mode]
+        log(f"quality_modes_{mode}: trained FVD {e['trained']['fvd']:.6f} "
+            f"MSE {e['trained']['mse']:.6f}; Identity FVD "
+            f"{e['naive']['fvd']:.6f} MSE {e['naive']['mse']:.6f}; "
+            f"{e['trained']['clips']} clips; beats Identity "
+            f"{'YES' if e['pass'] else 'NO'}; {e['seconds']:.1f} s; "
+            f"{rollout_levels(scratch, mode)}")
+    ckpt = {m: checkpoint_path(os.path.join(scratch, m, "checkpoints"),
+                               Q.CONFIG, 0, "test") for m in ("ar", "future")}
+    diff, rel, only = _params_distance(ckpt["ar"], ckpt["future"])
+    log(f"quality_modes: future against ar, the trained parameters: "
+        f"{'bit-equal' if diff == 0 and not only else 'not equal'}, largest "
+        f"|diff| {diff:.3e}, rel L2 {rel:.3e}; in one only: {only}")
+    if rc != 0 or not all(results[m]["pass"] for m in QUALITY_MODES):
+        raise AssertionError(f"quality_modes: a mode does not beat Identity "
+                             f"(exit {rc})")
+    expected, bodies = expected_quality_launches(models)
+    t1 = time.perf_counter()
+    with launch_window() as window:               # the main path
+        rc = G.main(argv + ["--drift_batch", str(QUALITY_DRIFT_BATCH)])
+    gate_s = time.perf_counter() - t1
+    window.check("dpmpp_quality_gate", expected, flash_body=bodies)
+    for k, n in counted(window).items():
+        total[k] += n
+    with open(os.path.join(scratch, "dpmpp_gate.json")) as f:
+        report = json.load(f)
+    log(f"dpmpp_gate_fvd: " + "; ".join(
+        f"{arm} FVD {e['fvd']:.6f} MSE {e['mse']:.6f}"
+        for arm, e in report["fvd_arms"].items()) + "; " + "; ".join(
+        f"{g}: FVD gap {report[g]['rel_fvd_gap']:+.4f}, MSE gap "
+        f"{report[g]['rel_mse_gap']:+.4f} (limit +0.15), "
+        f"{'pass' if report[g]['pass'] else 'FAIL'}"
+        for g in ("gate_dpmpp5", "gate_dpmpp4")))
+    drift = report["drift_512px"]
+    log(f"dpmpp_gate_drift_512: " + ", ".join(
+        f"{k} {v}" for k, v in drift.items()) + "; " + ", ".join(
+        f"err_dpmpp{k}_vs_truth / err_ddim10_vs_truth "
+        f"{drift[f'err_dpmpp{k}_vs_truth'] / drift['err_ddim10_vs_truth']:.4f}"
+        f" (limit {G.DRIFT_FACTOR})" for k in G.DPMPP_STEPS))
+    log(f"quality: the modes {modes_s:.1f} s, the gate {gate_s:.1f} s, the "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or not report["pass"]:
+        raise AssertionError(f"dpmpp_quality_gate: a gate failed (exit {rc})")
+    return total
+
+
 # Device-time buckets of the profile, by kernel name; the first match wins.
 PROFILE_BUCKETS = (
     ("K1 flash attention", ("flash_fwd",)),
@@ -2598,8 +2777,7 @@ def main() -> int:
         return 1
     if args.tp_worker:
         return tp_worker(*args.tp_worker)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_f32()
     t0 = time.perf_counter()
     phase_device()
     with tempfile.TemporaryDirectory(prefix="sdvg") as workdir:
@@ -2612,6 +2790,7 @@ def main() -> int:
             files = eval_files(models, eval_dir)
             sigs = path_signatures(models)
             sigs.update(eval_signatures(files))
+            sigs.update(quality_signatures(models))
             summary = phase_kernel(merge_signatures(sigs.values()))
             launches = {k: 0 for k in KERNELS}
             for path in PATHS:
@@ -2630,9 +2809,11 @@ def main() -> int:
             tp_dir = os.path.join(workdir, "tp")
             os.makedirs(tp_dir)
             tp_launches = phase_tp(models, files, data_dir, tp_dir)
+            quality_launches = phase_quality(models, workdir)
             for k in KERNELS:
                 launches[k] += (train_launches[k] + eval_launches[k]
-                                + data_launches[k] + tp_launches[k])
+                                + data_launches[k] + tp_launches[k]
+                                + quality_launches[k])
             if args.profile:
                 phase_profile(models)
             if args.tune:

@@ -283,6 +283,37 @@ def add_multihost_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def strict_f32() -> None:
+    """The port's one TF32 setting: off. Every f32 matrix product and
+    convolution runs in full f32 (PyTorch's default runs cuDNN convolutions
+    in TF32), as the JAX package computes them and as every card number was
+    measured. Each entry point that can reach the card calls this first.
+    K1's f32 body splits its operands itself and does not read these
+    flags; bf16 work is unaffected."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _yml_value(v) -> str:
+    """YAML 1.1 reads 1e-05 as a string: floats in exponent form need a
+    mantissa with a point (1.0e-05) for both JSON and PyYAML."""
+    if isinstance(v, list):
+        return "[" + ", ".join(_yml_value(x) for x in v) + "]"
+    if isinstance(v, float) and "e" in repr(v):
+        return f"{v:.1e}"
+    return json.dumps(v)
+
+
+def write_config(path: str, values: dict) -> None:
+    """A config file in JSON, YAML's flow subset, so that
+    ``load_raw_config`` reads it with or without PyYAML."""
+    with open(path, "w") as f:
+        f.write("{" + ", ".join(f"{json.dumps(k)}: {_yml_value(v)}"
+                                for k, v in values.items()) + "}")
+
+
 def add_device_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default: the card, and an error "

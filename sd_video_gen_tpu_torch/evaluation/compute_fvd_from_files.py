@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from sd_video_gen_tpu_torch.config import add_device_flag
+from sd_video_gen_tpu_torch.config import add_device_flag, strict_f32
 from sd_video_gen_tpu_torch.evaluation.fvd import (frechet_distance,
                                                    get_fvd_logits)
 from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
@@ -67,6 +67,7 @@ def _load_sequences(root: str, seq_len: int, max_seqs: int,
 
 
 def main(argv=None):
+    strict_f32()
     p = argparse.ArgumentParser()
     p.add_argument("--real_dir", required=True)
     p.add_argument("--fake_dir", required=True)

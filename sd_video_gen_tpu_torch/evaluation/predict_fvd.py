@@ -43,7 +43,8 @@ import warnings
 import numpy as np
 import torch
 
-from sd_video_gen_tpu_torch.config import build_arg_parser, load_config
+from sd_video_gen_tpu_torch.config import (build_arg_parser, load_config,
+                                           strict_f32)
 from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats, compute_fvd,
                                                    frechet_distance,
                                                    preprocess_videos)
@@ -129,6 +130,7 @@ def build_parser():
 
 @torch.inference_mode()
 def main(argv=None):
+    strict_f32()
     from sd_video_gen_tpu_torch.data import BatchLoader
     from sd_video_gen_tpu_torch.diffusion.refine import BatchWindow
     from sd_video_gen_tpu_torch.predict.predict import (build_codec,

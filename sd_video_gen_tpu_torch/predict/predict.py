@@ -60,7 +60,8 @@ import torch
 from sd_video_gen_tpu_torch.codecs import make_codec
 from sd_video_gen_tpu_torch.config import (add_device_flag,
                                            add_multihost_flags,
-                                           build_arg_parser, load_config)
+                                           build_arg_parser, load_config,
+                                           strict_f32)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.identity import IdentityModel
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -347,6 +348,7 @@ def join_run(parser, args):
 
 
 def main(argv=None):
+    strict_f32()
     parser = build_predict_parser()
     args = parser.parse_args(argv)
     if (args.mesh or args.multihost) and args.serve:

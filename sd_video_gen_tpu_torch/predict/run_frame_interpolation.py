@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import sys
 
+from sd_video_gen_tpu_torch.config import strict_f32
+
 
 def regroup_outputs(outputs_dir: str, work_dir: str, start: int = 8,
                     end: int = 12) -> list[str]:
@@ -56,6 +58,7 @@ def run_film(work_dir: str, times: int = 2,
 
 
 def main(argv=None):
+    strict_f32()
     p = argparse.ArgumentParser()
     p.add_argument("--outputs_dir", default="outputs")
     p.add_argument("--work_dir", default="predicted_images")

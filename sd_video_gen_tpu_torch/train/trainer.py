@@ -72,7 +72,7 @@ from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
 from sd_video_gen_tpu_torch.config import (Config, add_device_flag,
                                            add_multihost_flags,
                                            build_arg_parser, load_config,
-                                           sweep_grid)
+                                           strict_f32, sweep_grid)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -724,6 +724,7 @@ def build_train_parser():
 
 def main(argv=None):
     """The trainer's CLI; returns the fit history of each grid point."""
+    strict_f32()
     args = build_train_parser().parse_args(argv)
     if args.multihost:
         # before anything touches a device: the group picks this process's

@@ -22,7 +22,7 @@ import torch
 
 from sd_video_gen_tpu_torch.codecs import make_codec
 from sd_video_gen_tpu_torch.config import (add_device_flag, build_arg_parser,
-                                           load_config)
+                                           load_config, strict_f32)
 
 
 @torch.no_grad()
@@ -48,6 +48,7 @@ def build_latent_cache(dataset, codec, out_dir: str, stage: str,
 
 
 def main(argv=None):
+    strict_f32()
     p = build_arg_parser()
     p.add_argument("--codec", type=str, default="pixel",
                    choices=["pixel", "vae"])
