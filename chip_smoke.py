@@ -1,6 +1,6 @@
 """Drive the PyTorch port (``sd_video_gen_tpu_torch``) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--tune]
+    python3 chip_smoke.py [--tune]
 
 Phases (any failure ends the run with a non-zero exit; there is no CPU path):
 
@@ -163,10 +163,14 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               B, every GroupNorm ``nhwc``); the gate's kernel shapes (one
               UNet call of each phase, Phase B's decode) join phase 3's dry
               run
- 12. profile  only with ``--profile``: one warm batch of four paths under
-              torch.profiler, device time bucketed by kernel name; the two
-              unprofiled batches of every path, whose walls give the idle
-              share, all run before the first trace
+ 12. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
+              this process: its ten scenarios (the JAX bench's names and
+              sizes), each warmed up and timed over BENCH_REPEATS requests
+              with exact launches by body and every repeat's checksum equal
+              to the warm-up's, its FLOPs counted with the plain versions;
+              then, once every untraced timing is taken, one traced request
+              of each (device time by kernel bucket, idle share); each
+              scenario's JSON record and the aggregate after it are printed
  13. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
@@ -204,12 +208,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sd_video_gen_tpu_torch.codecs import PixelCodec
 from sd_video_gen_tpu_torch.config import (Config, load_config, strict_f32,
                                            write_config)
 from sd_video_gen_tpu_torch.data import MovingMNISTDataset
 from sd_video_gen_tpu_torch.data import native_loader
-from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.schedulers import DDIMSchedule
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
 from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
@@ -217,19 +219,16 @@ from sd_video_gen_tpu_torch.evaluation import predict_fvd
 from sd_video_gen_tpu_torch.evaluation.predict_fvd import load_i3d
 from sd_video_gen_tpu_torch.models import build
 from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextConfig,
-                                                     CLIPTextEncoder,
                                                      empty_prompt_ids)
 from sd_video_gen_tpu_torch.models.identity import IdentityModel
 from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
-from sd_video_gen_tpu_torch.models.unet import (Transformer2D,
-                                                UNet2DCondition, UNetConfig)
+from sd_video_gen_tpu_torch.models.unet import UNetConfig
 from sd_video_gen_tpu_torch.models.vae import (AttnBlock, AutoencoderKL,
                                                VAEConfig)
 from sd_video_gen_tpu_torch.ops import _kernels
-from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
-                                                  flash_attention,
+from sd_video_gen_tpu_torch.ops.attention import (flash_attention,
                                                   reference_attention, route)
 from sd_video_gen_tpu_torch.ops import groupnorm as gn
 from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
@@ -240,6 +239,13 @@ from sd_video_gen_tpu_torch.predict import serve as S
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
 from sd_video_gen_tpu_torch.tools import dpmpp_quality_gate as G
 from sd_video_gen_tpu_torch.tools import quality_modes as Q
+from sd_video_gen_tpu_torch.tools.bench_harness import (
+    BF16_FLOPS, CONTEXT, DDIM_STEPS, F32_FLOPS, FLAGSHIP, FRAME,
+    HBM_BYTES_PER_S, HI_RES, KERNELS, PATH_DEFAULTS, PATHS, REFINER_PATHS,
+    SD_GUIDANCE, SD_PATHS, SD_RUNS, TF32_FLOPS, TRAIN_FRAME, TRAIN_PATHS,
+    TRAIN_TIMED, TRAIN_WARMUP, assert_finite, build_models, card,
+    expected_launches, full_width_models, launch_window, log, make_trainer,
+    passes_per_model, predict_fn, train_frames, wrapper_host_cost)
 from sd_video_gen_tpu_torch.train.checkpoint import (checkpoint_path,
                                                      save_checkpoint)
 from sd_video_gen_tpu_torch.train import trainer as T
@@ -247,79 +253,6 @@ from sd_video_gen_tpu_torch.train.optim import Adam
 from sd_video_gen_tpu_torch.train.trainer import (Trainer, TrainState,
                                                   encode_or_passthrough)
 
-FRAME, CONTEXT, HI_RES, DDIM_STEPS = 64, 5, 512, 50
-FLAGSHIP = dict(dim_model=2048, num_heads=8, num_encoder_layers=4,
-                num_decoder_layers=8)
-# The predict paths, served in this order; names and sizes are the JAX
-# bench's (bench.py). ``requests`` are clips per request after the warm-up
-# batch; ``refine`` is the per-frame partial denoise (``hi_res=None``: on the
-# native latent grid); ``model`` names the transformer (``full_width_models``,
-# ``mode_models``). Keys left out take ``PATH_DEFAULTS``.
-PATH_DEFAULTS = dict(codec="pixel", pred=4, refine=None, mode="ar",
-                     model="ar", rollout="full", int8=False,
-                     future_horizon=None, labels=False)
-PATHS = [dict(PATH_DEFAULTS, **p) for p in (
-    dict(name="vae_denoise_ar4", codec="vae", batch_clips=1, requests=[1, 1],
-         refine=dict(hi_res=HI_RES, start_step=40, sampler="ddim",
-                     solver_steps=None)),
-    dict(name="vae_denoise_ar4_8streams_dpmpp5", codec="vae", batch_clips=8,
-         requests=[8, 8, 3],
-         refine=dict(hi_res=HI_RES, start_step=40, sampler="dpmpp",
-                     solver_steps=5)),
-    dict(name="pixel_ar16", batch_clips=256, pred=16, requests=[256, 256]),
-    dict(name="pixel_ar16_int8", batch_clips=256, pred=16, int8=True,
-         requests=[256, 256]),
-    dict(name="pixel_ar16_kvcache", batch_clips=256, pred=16,
-         rollout="cached", requests=[256, 256]),
-    dict(name="pixel_ar16_kvcache_int8", batch_clips=256, pred=16,
-         rollout="cached", int8=True, requests=[256, 256]),
-    dict(name="vae_ar16", codec="vae", batch_clips=32, pred=16,
-         requests=[32, 32]),
-    dict(name="vae_denoise_native_ar4", codec="vae", batch_clips=8,
-         rollout="cached", requests=[8, 8],
-         refine=dict(hi_res=None, start_step=48, sampler="ddim",
-                     solver_steps=None)),
-    dict(name="mode_diff", mode="diff", batch_clips=8, requests=[8]),
-    dict(name="mode_future", mode="future", model="future", batch_clips=8,
-         future_horizon=5, requests=[8]),
-    dict(name="mode_learned_tgt", mode="learned_tgt", model="learned_tgt",
-         batch_clips=8, future_horizon=5, requests=[8]),
-    dict(name="mode_text", mode="text", model="text", batch_clips=8,
-         labels=True, requests=[8]),
-    dict(name="identity_baseline", model="identity", batch_clips=8,
-         requests=[8]))]
-# The two 512px refiner paths: what --tune times.
-REFINER_PATHS = ("vae_denoise_ar4", "vae_denoise_ar4_8streams_dpmpp5")
-# The SD pipeline at 512px, B=1, guidance 7.5: ``unet_calls`` of batch 2 each.
-SD_GUIDANCE, SD_RUNS = 7.5, 3                 # one warm-up run + two timed
-SD_PATHS = [
-    dict(name="sd_txt2img_lms50", sampler="lms", steps=50, unet_calls=50),
-    dict(name="sd_txt2img_dpmpp20", sampler="dpmpp", steps=20, unet_calls=20),
-    dict(name="sd_img2img_ddim", sampler="ddim", steps=DDIM_STEPS,
-         start_step=10, unet_calls=40)]
-# The training paths: names and sizes are the JAX bench's (bench.py
-# scenario_train, scenario_train_tuned, scenario_train_ref_artifact). Each
-# takes TRAIN_WARMUP + TRAIN_TIMED + 1 optimizer steps on one fixed batch.
-TRAIN_FRAME, TRAIN_WARMUP, TRAIN_TIMED = 128, 2, 8
-_FLAGSHIP_TRAIN = dict(
-    config_name="11_27_ucf_final", lr=1e-5, frames_per_clip=5,
-    frames_to_predict=5, frame_size=TRAIN_FRAME, dropout_p=0.1, use_mse=True,
-    use_gdl=True, lambda_gdl=1.0, use_contrastive=True,
-    lambda_contrastive=0.025, **FLAGSHIP)
-TRAIN_PATHS = [
-    dict(name="train_flagship", codec="pixel", precision="bf16_full",
-         clip_frames=10, cfg=Config(batch_size=6, **_FLAGSHIP_TRAIN)),
-    dict(name="train_flagship_tuned", codec="pixel", precision="bf16_full",
-         clip_frames=10, cfg=Config(batch_size=288, **_FLAGSHIP_TRAIN)),
-    # the reference's own recorded run: the VAE encode of the pixel batch
-    # inside every step, f32, MSE + GDL
-    dict(name="train_ref_artifact", codec="vae", precision="f32",
-         clip_frames=5, cfg=Config(
-             config_name="config_test", lr=1e-4, batch_size=64,
-             frames_per_clip=5, frames_to_predict=5, frame_size=TRAIN_FRAME,
-             dim_model=256, num_heads=8, num_encoder_layers=6,
-             num_decoder_layers=6, dropout_p=0.1, use_mse=True, use_gdl=True,
-             lambda_gdl=1.0, use_contrastive=False))]
 # A small f32 VAE-codec train step, card (kernels) vs CPU (plain), dropout
 # off: loss components relative, first moments (the gradient) relative L2.
 # Summation order only (TF32 off).
@@ -423,29 +356,12 @@ DATA_YML = {"LR": [1e-5], "BATCH_SIZE": [6], "EPOCHS": [1],
 # The text-mode path: a labelled cache of a seeded in-script dataset of
 # TEXT_CLASSES classes (train and test clips), PixelCodec.
 DATA_TEXT_CLIPS = (24, 12)
-# The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-TF32_FLOPS = 495e12
-F32_FLOPS = 67e12      # CUDA cores, outside the tensor cores
-KERNELS = {
-    "flash_attention": dict(
-        source="sd_video_gen_tpu_torch/csrc/flash_attention.cu",
-        replaces="sd_video_gen_tpu/ops/attention.py:63"),
-    "groupnorm_silu": dict(
-        source="sd_video_gen_tpu_torch/csrc/groupnorm_silu_nhwc.cu",
-        replaces="sd_video_gen_tpu/ops/groupnorm.py:35"),
-}
 FLASH_BODIES = ("wgmma", "tf32x3", "fma")
 # Flash launches by body over the main path's counted windows (``counted``).
 BODY_LAUNCHES: collections.Counter = collections.Counter()
 # The flash rows of the f32 training step's dry run (phase 7), for the
 # kernels line.
 TRAIN_F32_ROWS: list = []
-
-
-def log(*a):
-    print(*a, flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -471,10 +387,7 @@ def timed(plain, kern) -> tuple[float, float]:
 
 
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card()
     log(smi)
     log(f"device: torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -508,43 +421,6 @@ def phase_build():
         f"{loader['seconds']:.2f} s")
 
 
-def _assert_finite(name, x):
-    if not torch.isfinite(x).all():
-        raise AssertionError(f"{name}: non-finite values")
-    return x
-
-
-def checked_refine(refine):
-    """The refiner, failing on a non-finite latent in or out."""
-    def run(flat, step):
-        _assert_finite(f"predicted latent (step {step})", flat)
-        return _assert_finite(f"refined latent (step {step})",
-                              refine(flat, step))
-    return run
-
-
-def checked_predict(predict):
-    """The predict entry point, failing on non-finite latents."""
-    def run(frames, text_embeds=None):
-        context, preds = predict(frames, text_embeds)
-        return _assert_finite("context", context), _assert_finite("preds",
-                                                                  preds)
-    return run
-
-
-def _models(device, dtype, vae_cfg, unet_cfg, clip_cfg, ft_dims, frame):
-    """VAE, UNet, CLIP-text and the mode-'ar' FrameTransformer, seeded, built
-    on device."""
-    vae = build(AutoencoderKL, vae_cfg, device, dtype, seed=0)
-    latent_dim = VAECodec(frame, vae).latent_dim
-    return dict(
-        device=torch.device(device), dtype=dtype, vae=vae,
-        unet=build(UNet2DCondition, unet_cfg, device, dtype, seed=1),
-        clip=build(CLIPTextEncoder, clip_cfg, device, dtype, seed=2),
-        ar=build(FrameTransformer, FrameTransformerConfig(
-            latent_dim=latent_dim, **ft_dims), device, dtype, seed=3))
-
-
 def mode_models(models, ft_dims, text_dim=TEXT_DIM):
     """``models`` plus the transformers of the other modes (same widths; the
     text model is ``dim_model + text_dim`` wide) and the identity baseline."""
@@ -556,43 +432,6 @@ def mode_models(models, ft_dims, text_dim=TEXT_DIM):
             text_embed_dim=text_dim, **ft_dims),
             models["device"], models["dtype"], seed=seed)
     return out
-
-
-def _predict_fn(models, path, frame=FRAME, hi_res=None, pred=None,
-                noise_fn=None, checked=False):
-    """The port's predict entry point for ``path`` over ``models``; ``hi_res``
-    and ``pred`` replace the path's (the small-width checks)."""
-    dev = models["device"]
-    codec = (VAECodec(frame, models["vae"]) if path["codec"] == "vae"
-             else PixelCodec(frame, dev))
-    refine = None
-    if path["refine"] is not None:
-        r = path["refine"]
-        refine = make_denoise_refiner(
-            SDPipeline(models["vae"], models["unet"], models["clip"]), frame,
-            r["start_step"], DDIM_STEPS,
-            r["hi_res"] and (hi_res or r["hi_res"]), noise_fn,
-            sampler=r["sampler"], solver_steps=r["solver_steps"])
-        if checked:
-            refine = checked_refine(refine)
-    predict = make_predict_fn(
-        models[path["model"]], codec, pred or path["pred"], window=CONTEXT,
-        mode=path["mode"], refiner=refine, rollout=path["rollout"],
-        int8=path["int8"], future_horizon=path["future_horizon"])
-    return codec, checked_predict(predict) if checked else predict
-
-
-def full_width_models():
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    t0 = time.perf_counter()
-    models = _models(dev, bf16, VAEConfig(), UNetConfig(), CLIPTextConfig(),
-                     FLAGSHIP, FRAME)
-    n_params = sum(p.numel() for m in models.values()
-                   if isinstance(m, nn.Module) for p in m.parameters())
-    torch.cuda.synchronize()
-    log(f"models: built {n_params / 1e6:.1f}M params bf16 on {dev} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return models
 
 
 def sd_inputs(models):
@@ -620,7 +459,7 @@ def run_sd(pipe, path, emb, img, steps=None, seed=0):
     lat = pipe.denoise_img_latents(emb, HI_RES, HI_RES, steps or path["steps"],
                                    SD_GUIDANCE, generator=g,
                                    sampler=path["sampler"])
-    return pipe._decode_pixels(_assert_finite("denoised latents", lat))
+    return pipe._decode_pixels(assert_finite("denoised latents", lat))
 
 
 def path_signatures(models):
@@ -636,7 +475,7 @@ def path_signatures(models):
             if path["codec"] != "vae" and path["refine"] is None:
                 continue
             with _kernels.record_calls() as rec:
-                codec, predict = _predict_fn(models, path)
+                codec, predict = predict_fn(models, path)
                 context, preds = predict(np.zeros(
                     (path["batch_clips"], CONTEXT, FRAME, FRAME, 3),
                     np.uint8))
@@ -820,37 +659,13 @@ def check_groupnorm(sig, dtype, body) -> dict:
                 gbps=nbytes / ms / 1e6)
 
 
-def wrapper_host_cost():
-    """Host time per wrapper call on a tiny tensor (the device work is
-    nothing): what each of a path's thousands of calls costs the Python
-    thread, per kernel and body."""
-    def per_call(fn) -> float:
-        for _ in range(200):
-            fn()
-        torch.cuda.synchronize()
-        n, t0 = 3000, time.perf_counter()
-        for _ in range(n):
-            fn()
-        host = (time.perf_counter() - t0) / n
-        torch.cuda.synchronize()
-        return host
-
-    w = torch.ones(32, device="cuda", dtype=torch.bfloat16)
-    for body in ("nhwc", "nchw"):
-        x = torch.randn(1, 32, 8, 8, device="cuda", dtype=torch.bfloat16)
-        if body == "nhwc":
-            x = x.contiguous(memory_format=torch.channels_last)
-        host = per_call(lambda: groupnorm_silu(x, w, w, 8, 1e-6, True))
-        log(f"kernel: groupnorm_silu wrapper on (1, 32, 8, 8) bf16 {body}: "
-            f"{host * 1e6:.2f} us of host time per call, {1 / host:.0f} "
-            f"calls/s")
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn(1, 64, 40, device="cuda").to(dtype)
-        body = route(dtype, 40, (q.data_ptr(),) * 3)
-        host = per_call(lambda: flash_attention(q, q, q))
-        log(f"kernel: flash_attention wrapper on (1, 64, 40) "
-            f"{str(dtype).split('.')[-1]} {body}: {host * 1e6:.2f} us of "
-            f"host time per call, {1 / host:.0f} calls/s")
+def log_wrapper_host_cost():
+    """Host time per wrapper call (``bench_harness.wrapper_host_cost``)."""
+    for (name, body), host in wrapper_host_cost().items():
+        shape = ("(1, 32, 8, 8) bf16" if name == "groupnorm_silu" else
+                 f"(1, 64, 40) {'bfloat16' if body == 'wgmma' else 'float32'}")
+        log(f"kernel: {name} wrapper on {shape} {body}: {host * 1e6:.2f} us "
+            f"of host time per call, {1 / host:.0f} calls/s")
 
 
 def check_signatures(sigs, dtypes, what: str = "") -> list:
@@ -911,7 +726,7 @@ def phase_kernel(sigs) -> dict:
         f"TF32 on): {tensor_core_rounding():.4f} of those off the exact sum "
         f"lie nearer zero")
     rows = check_signatures(sigs, (torch.bfloat16, torch.float32))
-    wrapper_host_cost()
+    log_wrapper_host_cost()
     summary = {}
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -931,41 +746,6 @@ def phase_kernel(sigs) -> dict:
     return summary
 
 
-def expected_launches(models, path, batches: int) -> dict:
-    """Launches of each kernel in ``batches`` batches of a predict path, from
-    the models' structure: every GroupNorm module runs once per pass, flash
-    attention once per VAE attention block and per UNet Transformer2D
-    (attn1)."""
-    out = {}
-    for name, (enc, dec, un) in passes_per_model(models).items():
-        codec = path["codec"] == "vae"
-        per_frame, r = 0, path["refine"]
-        if r is not None:
-            n_unet = (DDIMSchedule(DDIM_STEPS).n_steps - r["start_step"]
-                      if r["sampler"] == "ddim" else r["solver_steps"])
-            # at hi_res: 2 VAE dec + 2 VAE enc around the UNet calls
-            per_frame = n_unet * un + (2 * (dec + enc) if r["hi_res"] else 0)
-        # context encode; the refiner per frame; the final decode
-        out[name] = batches * (codec * enc + path["pred"] * per_frame
-                               + codec * dec)
-        log(f"{path['name']}: {name} expected {out[name]} = {batches} "
-            f"batches x ({codec * enc} + {path['pred']} x {per_frame} + "
-            f"{codec * dec})")
-    return out
-
-
-def passes_per_model(models) -> dict:
-    """Kernel launches per (VAE encode, VAE decode, UNet forward)."""
-    vae, unet = models["vae"], models["unet"]
-    count = lambda m, cls: sum(isinstance(x, cls) for x in m.modules())
-    return {"flash_attention": (count(vae.encoder, AttnBlock),
-                                count(vae.decoder, AttnBlock),
-                                count(unet, Transformer2D)),
-            "groupnorm_silu": (count(vae.encoder, nn.GroupNorm),
-                               count(vae.decoder, nn.GroupNorm),
-                               count(unet, nn.GroupNorm))}
-
-
 def counted(window) -> dict:
     """A main-path window's launches, its flash launches by body added to
     ``BODY_LAUNCHES``."""
@@ -973,50 +753,9 @@ def counted(window) -> dict:
     return window.launches
 
 
-class launch_window:
-    """Counts of the main path: every count set to 0 on entry, read on exit
-    (``launches``, and launches by body of each kernel)."""
-
-    def __enter__(self):
-        _kernels.LAUNCHES.clear()
-        ROUTE_LAUNCHES.clear()
-        gn.ROUTE_LAUNCHES.clear()
-        return self
-
-    def __exit__(self, *exc):
-        torch.cuda.synchronize()
-        self.launches = {k: _kernels.LAUNCHES.get(k, 0) for k in KERNELS}
-        self.bodies = dict(ROUTE_LAUNCHES)
-        self.gn_bodies = dict(gn.ROUTE_LAUNCHES)
-        return False
-
-    def check(self, name: str, expected: dict, flash_body="wgmma"):
-        """Exact counts, every GroupNorm launch on the NHWC body and every
-        flash launch on ``flash_body``: the bf16 tensor-core body on the
-        serving paths, the f32 one (tf32x3) in the f32 training step; or,
-        where a window runs both, ``flash_body`` is the exact launches by
-        body."""
-        log(f"{name}: launches {self.launches}; flash attention by body "
-            f"{self.bodies}; GroupNorm by body {self.gn_bodies}")
-        if self.gn_bodies.get("nhwc", 0) != self.launches["groupnorm_silu"]:
-            raise AssertionError(f"{name}: GroupNorm left the NHWC body: "
-                                 f"{self.gn_bodies}")
-        bodies = (flash_body if isinstance(flash_body, dict) else
-                  {flash_body: self.launches["flash_attention"]})
-        nonzero = lambda d: {b: n for b, n in d.items() if n}
-        if nonzero(self.bodies) != nonzero(bodies):
-            raise AssertionError(f"{name}: flash attention by body "
-                                 f"{self.bodies}, the path implies {bodies}")
-        for kernel, want in expected.items():
-            if self.launches[kernel] != want:
-                raise AssertionError(
-                    f"{name}: {kernel} launched {self.launches[kernel]} "
-                    f"times, the path implies {want}")
-
-
 def phase_serve(models, path) -> dict:
     name, batch_clips, pred = path["name"], path["batch_clips"], path["pred"]
-    codec, predict = _predict_fn(models, path, checked=True)
+    codec, predict = predict_fn(models, path, checked=True)
     embedder = (ClassNameEmbedder(TEXT_CLASSES, TEXT_DIM,
                                   device=models["device"])
                 if path["labels"] else None)
@@ -1147,7 +886,7 @@ def _rel_l2(fn) -> tuple[float, float, float]:
     with _kernels.force_reference():
         ref = fn()
     torch.cuda.synchronize()
-    _assert_finite("output", out)
+    assert_finite("output", out)
     rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
     ms = cuda_ms(fn, 5)
     with _kernels.force_reference():
@@ -1160,9 +899,9 @@ def _first_frames(models, names, frames) -> dict:
     by_name = {p["name"]: p for p in PATHS}
     out = {}
     for name in names:
-        _, predict = _predict_fn(models, by_name[name], frame=frames.shape[2],
+        _, predict = predict_fn(models, by_name[name], frame=frames.shape[2],
                                  pred=2)
-        out[name] = _assert_finite(name, predict(frames)[1][:, 0]).float()
+        out[name] = assert_finite(name, predict(frames)[1][:, 0]).float()
     return out
 
 
@@ -1240,7 +979,7 @@ def phase_check(models):
         shape, generator=torch.Generator().manual_seed(step))
     small_ft = dict(dim_model=64, num_heads=4, num_encoder_layers=1,
                     num_decoder_layers=2, dim_feedforward=64)
-    base = _models(
+    base = build_models(
         "cpu", torch.float32,
         VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
                   norm_num_groups=8),
@@ -1265,7 +1004,7 @@ def phase_check(models):
         out = {}
         for where, sets in (("cpu", on_cpu), ("gpu", on_card)):
             ms = sets[path["codec"]]
-            codec, predict = _predict_fn(ms, path, 16, 64, 3, noise_fn=noise)
+            codec, predict = predict_fn(ms, path, 16, 64, 3, noise_fn=noise)
             before = dict(_kernels.LAUNCHES)
             extra = ((ClassNameEmbedder(TEXT_CLASSES, 8, device=ms["device"])(
                 labels),) if path["labels"] else ())
@@ -1299,25 +1038,6 @@ def phase_check(models):
                             SMALL_CACHED_FRAME1_REL_L2, INT8_REL_L2)
 
 
-def _train_frames(path, seed=0) -> np.ndarray:
-    cfg = path["cfg"]
-    return np.random.default_rng(seed).integers(
-        0, 256, (cfg.batch_size, path["clip_frames"], cfg.frame_size,
-                 cfg.frame_size, 3), dtype=np.uint8)
-
-
-def _trainer(path, workdir, seed=0) -> Trainer:
-    """The port's Trainer for a training path, on the card, its state
-    initialised from ``seed``; checkpoints and logs under ``workdir``."""
-    trainer = Trainer(path["cfg"], mode="ar", codec_kind=path["codec"],
-                      checkpoint_dir=os.path.join(workdir, "checkpoints"),
-                      log_dir=os.path.join(workdir, "logs"), use_wandb=False,
-                      precision=path["precision"], device="cuda")
-    trainer.logger.quiet = True
-    trainer.init_state(seed=seed)
-    return trainer
-
-
 def train_signatures(trainers) -> collections.Counter:
     """Every (kernel, signature) one step of each training path hands the
     dispatchers: a dry run of the step's frozen encode with the plain
@@ -1327,7 +1047,7 @@ def train_signatures(trainers) -> collections.Counter:
     with _kernels.force_reference():
         for path, trainer in trainers:
             with _kernels.record_calls() as rec:
-                encode_or_passthrough(trainer.codec, _train_frames(path), True)
+                encode_or_passthrough(trainer.codec, train_frames(path), True)
             merged.update(rec.calls)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1343,7 +1063,7 @@ def run_train_path(path, trainer, enc_launches) -> dict:
     ``Trainer.train_loop`` on one fixed batch (the frames cross to the card
     every step, as they do from a loader); returns the window's launches."""
     name, cfg = path["name"], path["cfg"]
-    batch = ([0] * cfg.batch_size, _train_frames(path))
+    batch = ([0] * cfg.batch_size, train_frames(path))
     steps = TRAIN_WARMUP + TRAIN_TIMED + 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1368,7 +1088,7 @@ def run_train_path(path, trainer, enc_launches) -> dict:
         raise AssertionError(f"{name}: non-finite loss components: {first} "
                              f"{timed_m} {last}")
     for p in trainer.state.params.values():
-        _assert_finite(f"{name} parameters", p)
+        assert_finite(f"{name} parameters", p)
     n_params = sum(p.numel() for p in trainer.state.params.values())
     log(f"{name}: batch {cfg.batch_size} x {path['clip_frames']} frames of "
         f"{cfg.frame_size}px, codec {path['codec']}, precision "
@@ -1402,8 +1122,8 @@ def dropout_cost(path, workdir):
     rates = {}
     for p in (path["cfg"].dropout_p, 0.0):
         variant = dict(path, cfg=path["cfg"].replace(dropout_p=p))
-        trainer = _trainer(variant, workdir)
-        batch = ([0] * variant["cfg"].batch_size, _train_frames(variant))
+        trainer = make_trainer(variant, workdir)
+        batch = ([0] * variant["cfg"].batch_size, train_frames(variant))
         for _ in range(TRAIN_WARMUP):
             trainer.train_loop([batch])
         torch.cuda.synchronize()
@@ -1426,11 +1146,11 @@ def check_resume(path, trainer, workdir):
     number: equal losses, parameters and moments, bit for bit."""
     t0 = time.perf_counter()
     saved = trainer.save("interrupt")
-    fresh = _trainer(path, workdir, seed=1)
+    fresh = make_trainer(path, workdir, seed=1)
     fresh.resume(os.path.basename(saved))
     if fresh.state.step != trainer.state.step:
         raise AssertionError("resume: the step number was not restored")
-    batch = ([0] * path["cfg"].batch_size, _train_frames(path, seed=3))
+    batch = ([0] * path["cfg"].batch_size, train_frames(path, seed=3))
     a, b = ({k: v for k, v in t.train_loop([batch]).items()
              if k.endswith("_train")} for t in (trainer, fresh))
     same = a == b
@@ -1512,7 +1232,7 @@ def phase_train(models, workdir) -> tuple:
     # the f32 VAE step first: its kernel shapes, each against its plain
     # version, before anything is timed
     ref = by_name["train_ref_artifact"]
-    ref_trainer = _trainer(ref, workdir)
+    ref_trainer = make_trainer(ref, workdir)
     rows = check_signatures(train_signatures([(ref, ref_trainer)]),
                             (torch.float32,), what="train f32: ")
     # a 128px encode: one attention shape; six GroupNorm shapes with
@@ -1527,7 +1247,7 @@ def phase_train(models, workdir) -> tuple:
                              f"{sorted({r['route'] for r in rows})}")
     for path in TRAIN_PATHS:
         trainer = (ref_trainer if path is ref
-                   else _trainer(path, workdir))
+                   else make_trainer(path, workdir))
         for k, n in run_train_path(path, trainer, enc_launches).items():
             total[k] += n
         if path["name"] == "train_flagship":
@@ -1695,7 +1415,7 @@ def run_eval_path(models, files, path) -> dict:
 def check_trainer_fvd(path, trainer, i3d):
     """``Trainer.fvd_validation`` of a training path, both protocols, over
     two seeded batches: finite FVD, wall time."""
-    loader = [([0] * path["cfg"].batch_size, _train_frames(path, seed=s))
+    loader = [([0] * path["cfg"].batch_size, train_frames(path, seed=s))
               for s in (5, 6)]
     for protocol in ("last_k", "reference"):
         torch.cuda.synchronize()
@@ -1721,7 +1441,7 @@ def check_i3d(i3d_path):
     for dev in ("cpu", "cuda"):
         with torch.inference_mode():
             out[dev] = load_i3d(i3d_path, dev)(x.to(dev)).cpu()
-    _assert_finite("I3D logits", out["cuda"])
+    assert_finite("I3D logits", out["cuda"])
     rel = ((out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()).item()
     log(f"eval: I3D {I3D_SHAPE} f32 logits, card vs CPU: rel L2 {rel:.3e} "
         f"(bound {I3D_REL_L2})")
@@ -2597,86 +2317,34 @@ def phase_quality(models, workdir) -> dict:
     return total
 
 
-# Device-time buckets of the profile, by kernel name; the first match wins.
-PROFILE_BUCKETS = (
-    ("K1 flash attention", ("flash_fwd",)),
-    ("K2 GroupNorm+SiLU", ("gn_nhwc", "gn_partial", "gn_stats", "gn_apply")),
-    ("NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
-    ("convolutions", ("conv2d", "convolution", "cudnn", "xmma", "fprop",
-                      "implicit_gemm", "conv_")),
-    ("matrix products", ("gemm", "nvjet", "cublas", "gemv")),
-    ("layer norm", ("layer_norm", "layernorm")),
-    ("softmax", ("softmax",)),
-    ("copies / cat", ("copy", "catarray", "memcpy", "memset")),
-    ("elementwise", ("elementwise", "vectorized")),
-)
+BENCH_REPEATS = 3      # timed requests a scenario (the CLI takes 5)
 
 
-def profile_batches(models):
-    """(name, one warm batch) of each profiled path: predict + the final
-    decode (what ``serve`` runs per batch), or one image of an SD path."""
-    by_name = {p["name"]: p for p in PATHS}
-    for name in REFINER_PATHS + ("pixel_ar16_kvcache",):
-        path = by_name[name]
-        codec, predict = _predict_fn(models, path)
-        frames = np.random.default_rng(2).integers(
-            0, 256, (path["batch_clips"], CONTEXT, FRAME, FRAME, 3),
-            dtype=np.uint8)
+def phase_bench() -> dict:
+    """The benchmark's ten scenarios in this process; a scenario that fails
+    fails the run. Returns their launches (every window of both passes),
+    the flash ones by body added to ``BODY_LAUNCHES``."""
+    from sd_video_gen_tpu_torch import bench
+    t0 = time.perf_counter()
+    results = {}
+    failed = bench.run(bench.select([]), repeats=BENCH_REPEATS,
+                       results=results)
+    if failed:
+        raise AssertionError(f"bench: scenarios failed: {failed}")
+    total = {k: 0 for k in KERNELS}
+    for rec in results.values():
+        for k, bodies in rec["launches_in_run"].items():
+            total[k] += sum(bodies.values())
+        BODY_LAUNCHES.update(rec["launches_in_run"]["flash_attention"])
+    log(f"bench: {len(results)} scenarios, {BENCH_REPEATS} timed requests "
+        f"each, in {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
 
-        def batch(codec=codec, predict=predict, frames=frames):
-            with torch.inference_mode():
-                context, preds = predict(frames)
-                seq = torch.cat([context[:, :-1], preds], dim=1)
-                codec.decode_latents(seq.reshape(-1, seq.shape[-1])).cpu()
-        yield f"{name} B={path['batch_clips']}", batch
-    pipe, emb, img = sd_inputs(models)
-    yield "sd_txt2img_lms50 B=1", lambda: run_sd(pipe, SD_PATHS[0], emb,
-                                                 img).cpu()
 
-
-def phase_profile(models):
-    """One warm batch of each profiled path under torch.profiler. Every
-    path's two unprofiled batches, whose wall times give the device's idle
-    share, run before the first trace: once the profiler has been on, every
-    later launch of the process costs the host more."""
-    from torch.profiler import ProfilerActivity, profile
-    batches, walls = list(profile_batches(models)), {}
-    for path, batch in batches:
-        walls[path] = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            batch()
-            torch.cuda.synchronize()
-            walls[path].append(time.perf_counter() - t0)
-    for path, batch in batches:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            batch()
-            torch.cuda.synchronize()
-        buckets, count, total = collections.Counter(), 0, 0.0
-        by_kernel = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            if not us:
-                continue
-            key = e.key.lower()
-            bucket = next((b for b, words in PROFILE_BUCKETS
-                           if any(w in key for w in words)), "other")
-            buckets[bucket] += us / 1e3
-            by_kernel.append((us / 1e3, e.count, bucket, e.key))
-            total += us / 1e3
-            count += e.count
-        if not total:
-            raise AssertionError("profile: the trace shows no device time")
-        log(f"profile: {path}: unprofiled wall {walls[path][0]:.3f} s, "
-            f"{walls[path][1]:.3f} s; device time {total:.1f} ms in {count} "
-            f"kernels and copies; device idle "
-            f"{1 - total / 1e3 / min(walls[path]):.0%} of the faster wall")
-        for bucket, ms in buckets.most_common():
-            log(f"profile:   {bucket}: {ms:.1f} ms ({ms / total:.1%})")
-        for ms, n, bucket, key in sorted(by_kernel, reverse=True)[:25]:
-            log(f"profile:     {ms:.1f} ms x{n} [{bucket}] {key[:110]}")
+def print_totals(launches, what: str) -> None:
+    log(f"launches {what}: flash attention {launches['flash_attention']} "
+        f"({ {b: BODY_LAUNCHES.get(b, 0) for b in FLASH_BODIES} }), "
+        f"GroupNorm {launches['groupnorm_silu']}")
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -2767,8 +2435,6 @@ def main() -> int:
     parser.add_argument("--tune", action="store_true",
                         help="also time the GroupNorm NHWC body's modes at "
                              "every shape of the 512px refiner paths")
-    parser.add_argument("--profile", action="store_true",
-                        help="also profile one warm batch of four paths")
     parser.add_argument("--tp-worker", nargs=5, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2814,8 +2480,9 @@ def main() -> int:
                 launches[k] += (train_launches[k] + eval_launches[k]
                                 + data_launches[k] + tp_launches[k]
                                 + quality_launches[k])
-            if args.profile:
-                phase_profile(models)
+            print_totals(launches, "outside the bench phase")
+            for k, n in phase_bench().items():
+                launches[k] += n
             if args.tune:
                 phase_tune(merge_signatures(sigs[name]
                                             for name in REFINER_PATHS))

@@ -264,8 +264,9 @@ def test_wire_framing_is_the_jax_packages_byte_for_byte(header, payload):
 
 def test_port_imports_no_jax_flax_optax_yaml_cv2():
     """Importing every module of the port (and ``chip_smoke``) with jax,
-    flax, optax, orbax, yaml, cv2, transformers, the JAX package and the
-    repository's ``tools/`` blocked: none may be imported at import time
+    flax, optax, orbax, yaml, cv2, transformers, the JAX package, the JAX
+    bench (``bench.py``) and the repository's ``tools/`` blocked: none may
+    be imported at import time
     (yaml and cv2 only inside the functions that need them). Neither may
     the port's source nor ``chip_smoke.py`` reach ``tools/`` another way
     (a ``sys.path`` entry, or an import inside a ``-c`` string), since a
@@ -282,18 +283,20 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             src = f.read()
         assert not re.search(r"sys\.path\.(insert|append)\([^)]*tools", src), \
             path
-        assert not re.search(r"^\s*(from|import)\s+(tools|synthetic_checkpoint)"
-                             r"\b", src, re.M), path
+        assert not re.search(r"^\s*(from|import)\s+(tools|synthetic_checkpoint"
+                             r"|bench)\b", src, re.M), path
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'cv2',\n"
-        "          'transformers', 'wandb', 'sd_video_gen_tpu', 'tools'):\n"
+        "          'transformers', 'wandb', 'sd_video_gen_tpu', 'tools',\n"
+        "          'bench'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    __import__(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'orbax', 'yaml', 'cv2', 'jaxlib',\n"
-        "        'transformers', 'wandb', 'sd_video_gen_tpu', 'tools')\n"
+        "        'transformers', 'wandb', 'sd_video_gen_tpu', 'tools',\n"
+        "        'bench')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
@@ -326,6 +329,8 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             "sd_video_gen_tpu_torch.tools.quality_modes",
             "sd_video_gen_tpu_torch.tools.dpmpp_quality_gate",
             "sd_video_gen_tpu_torch.tools.synthetic_checkpoint",
+            "sd_video_gen_tpu_torch.tools.bench_harness",
+            "sd_video_gen_tpu_torch.bench",
             "sd_video_gen_tpu_torch.examples.ball_demo",
             "sd_video_gen_tpu_torch.examples.serving_demo"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

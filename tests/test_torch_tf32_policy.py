@@ -23,7 +23,8 @@ ENTRY_POINTS = ["train/trainer.py", "predict/predict.py",
                 "evaluation/compute_fvd_from_files.py",
                 "predict/run_frame_interpolation.py", "utils/preprocess.py",
                 "tools/quality_modes.py", "tools/dpmpp_quality_gate.py",
-                "examples/ball_demo.py", "examples/serving_demo.py"]
+                "examples/ball_demo.py", "examples/serving_demo.py",
+                "bench.py"]
 OFF = (False, False, "highest")
 
 
