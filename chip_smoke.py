@@ -143,7 +143,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               one process) and 0.1 (replicated parameters bit-equal on
               every rank). Launches per rank exact (the ring's calls run
               no kernel), every per-rank kernel signature held against the
-              plain version in bf16 and f32, the bodies those of phase 8
+              plain version in bf16 and f32 on the body the paths take (the
+              GroupNorm NCHW body, which none takes, is checked in phase 3
+              only), the bodies those of phase 8
  11. quality  the port's quality evidence through the tools' ``main``, at
               their defaults on a seeded Moving-MNIST-layout stand-in
               (``--dataset mnist``: no cv2 here): ``tools/quality_modes``
@@ -163,7 +165,25 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               B, every GroupNorm ``nhwc``); the gate's kernel shapes (one
               UNet call of each phase, Phase B's decode) join phase 3's dry
               run
- 12. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
+ 12. cli      the port's benchmark tools (``sd_video_gen_tpu_torch/tools/``)
+              at reduced depth on a Moving-MNIST-layout stand-in: the
+              predict CLI as a child process (through ``tools/counted``,
+              which prints the child's launches by body) in batch mode, 3
+              batches of 8 streams refined by the 10-step DDIM tail at
+              512px (``bench_cli_serving``; its ``--timing`` line read), and
+              as a persistent server (``--serve``: ``SERVE_READY``, then 3
+              requests over the socket); the trainer CLI, 2 epochs of the
+              flagship at 128px from the native cache (``bench_cli_train``;
+              its metrics log read, no kernel); the knee's points
+              ``train_bf16_full_b48`` and ``denoise_b16`` (1 timed request
+              each: exact launches, checksums equal, no ``error`` line);
+              ``bench_attention``'s six rows, the dispatcher held to the
+              port's limits (3e-5 f32, 2e-2 bf16) before each is timed. The
+              parent's models are freed first; every child must exit 0 with
+              exact launches (a DDIM batch's 658 K1 + 2908 K2, 3 batches in
+              batch mode, 4 with the server's warm-up), every K1 launch on
+              ``wgmma`` / ``tf32x3`` as routed and every K2 launch ``nhwc``
+ 13. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
               this process: its ten scenarios (the JAX bench's names and
               sizes), each warmed up and timed over BENCH_REPEATS requests
               with exact launches by body and every repeat's checksum equal
@@ -171,7 +191,7 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               then, once every untraced timing is taken, one traced request
               of each (device time by kernel bucket, idle share); each
               scenario's JSON record and the aggregate after it are printed
- 13. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 14. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -668,9 +688,12 @@ def log_wrapper_host_cost():
             f"of host time per call, {1 / host:.0f} calls/s")
 
 
-def check_signatures(sigs, dtypes, what: str = "") -> list:
+def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True
+                     ) -> list:
     """Each kernel at each signature of ``sigs`` in each of ``dtypes``
-    against its plain version, timed; fails on any disagreement."""
+    against its plain version, timed; fails on any disagreement.
+    ``nchw=False`` leaves out the GroupNorm NCHW body, which no path
+    takes."""
     rows, failures = [], []
     for (name, sig), calls in sigs.items():
         if name == "groupnorm_silu" and sig[5] != "nhwc":
@@ -683,7 +706,8 @@ def check_signatures(sigs, dtypes, what: str = "") -> list:
         bodies = (None,)
         if name == "groupnorm_silu":
             one_layout = sig[0][1] == 1 or sig[0][2] * sig[0][3] == 1
-            bodies = ("nhwc",) if one_layout else ("nhwc", "nchw")
+            bodies = ("nhwc",) if one_layout or not nchw else ("nhwc",
+                                                                "nchw")
         for dtype in dtypes:
             for body in bodies:
                 res = (check_attention(sig, dtype) if body is None else
@@ -2134,8 +2158,10 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
             BODY_LAUNCHES.update(res["bodies"])
             for k in KERNELS:
                 total[k] += res["launches"][k]
+    # the NCHW body, which no path takes, is checked at every full-width
+    # shape in phase 3; here it is left out (the script's time bound)
     rows = check_signatures(sigs, (torch.bfloat16, torch.float32),
-                            what="tp per-rank: ")
+                            what="tp per-rank: ", nchw=False)
     log(f"tp: {len(rows)} kernel rows at the per-rank shapes agree; "
         f"launches of the {TP_WORLD}-rank runs {total}; "
         f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
@@ -2317,6 +2343,132 @@ def phase_quality(models, workdir) -> dict:
     return total
 
 
+# The cli phase (phase 12): the port's benchmark tools at reduced depth, on
+# the Moving-MNIST-layout stand-in (``--dataset mnist``: no cv2 here). The
+# predict CLI as a child process, in batch mode (CLI_BATCHES batches of
+# CLI_STREAMS) and as a server (its warm-up batch and CLI_REQUESTS requests);
+# the trainer CLI (CLI_EPOCHS epochs from the native cache); the knee's two
+# points the bench phase does not run (1 timed request each); the attention
+# tool's six rows. The children run through ``tools/counted``, whose
+# COUNTED line carries their launches by body. It runs before the bench
+# phase, whose traces raise the host's cost of every later launch.
+CLI_STREAMS, CLI_BATCHES, CLI_REQUESTS, CLI_EPOCHS = 8, 3, 3, 2
+CLI_KNEE = ("train_bf16_full_b48", "denoise_b16")
+CLI_TIMEOUT = 300          # seconds, one child
+
+
+def check_child(name, counts, expected) -> dict:
+    """A child's COUNTED line: launches equal ``expected``, every dispatcher
+    call a launch, every flash launch on the ``wgmma`` body and every
+    GroupNorm launch on the ``nhwc`` body. Returns its launches, the flash
+    ones by body added to ``BODY_LAUNCHES``."""
+    launches, bodies = counts["launches"], counts["bodies"]
+    log(f"{name}: launches {launches}; by body {bodies}; dispatcher calls "
+        f"{counts['calls']}; the path implies {expected}")
+    nonzero = lambda d: {k: n for k, n in d.items() if n}
+    if launches != expected or counts["calls"] != nonzero(launches):
+        raise AssertionError(f"{name}: launches {launches} (dispatcher calls "
+                             f"{counts['calls']}), the path implies "
+                             f"{expected}")
+    if (nonzero(bodies["flash_attention"])
+            != nonzero({"wgmma": launches["flash_attention"]})
+            or nonzero(bodies["groupnorm_silu"])
+            != nonzero({"nhwc": launches["groupnorm_silu"]})):
+        raise AssertionError(f"{name}: a launch left its body: {bodies}")
+    BODY_LAUNCHES.update(bodies["flash_attention"])
+    return launches
+
+
+def phase_cli(per_batch, checkpoint, workdir) -> dict:
+    """The benchmark tools: the CLI children (launches exact, exit 0, their
+    ``--timing`` / ``SERVE_READY`` lines read), the knee's points (no
+    ``error`` line) and the attention rows (parity at the port's limits).
+    ``per_batch``: the launches of one 8-stream 512px DDIM batch;
+    ``checkpoint``: the eval phase's flagship checkpoint, which the serving
+    tool reads in place of drawing its own (the same widths; None: the tool
+    draws one). Returns the launches."""
+    from sd_video_gen_tpu_torch.tools import bench_attention as BA
+    from sd_video_gen_tpu_torch.tools import bench_cli_serving as CS
+    from sd_video_gen_tpu_torch.tools import bench_cli_train as CT
+    from sd_video_gen_tpu_torch.tools import bench_knee as KN
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for k in KERNELS:
+            total[k] += launches[k]
+
+    def times(n):
+        return {k: n * v for k, v in per_batch.items()}
+
+    serving = os.path.join(workdir, "cli", "serving")
+    ckpt = checkpoint_path(os.path.join(serving, "checkpoints"),
+                           CS.CONFIG_NAME, 0, "test")
+    if checkpoint is not None:
+        os.makedirs(os.path.dirname(ckpt))
+        os.symlink(checkpoint, ckpt)
+    clips, pred = CLI_STREAMS * CLI_BATCHES, CS.CONFIG["FRAMES_TO_PREDICT"][0]
+    paths = CS.prepare(serving, clips, "mnist")
+    t = CS.run_cli(paths, clips, CLI_STREAMS, pred, False, CLI_TIMEOUT,
+                   counted=True)
+    if t["clips"] != clips or not t.get("first_sync_s"):
+        raise AssertionError(f"cli_serving: timing payload {t}")
+    steady = (clips - CLI_STREAMS) * pred / (t["total_s"]
+                                             - t["first_sync_s"])
+    log(f"cli_serving batch: {CLI_BATCHES} batches of {CLI_STREAMS} streams, "
+        f"steady {steady:.4f} frames/s, with the start-up "
+        f"{clips * pred / t['total_s']:.4f}; first sync {t['first_sync_s']} "
+        f"s, total {t['total_s']} s, child wall {t['wall_s']} s")
+    add(check_child("cli_serving batch", t["launches"], times(CLI_BATCHES)))
+    r = CS.run_serve_bench(paths, CLI_STREAMS, pred, CLI_REQUESTS,
+                           CLI_TIMEOUT, counted=True)
+    log(f"cli_serving serve: ready after {r['server_ready_wall_s']} s "
+        f"(warm-up {r['server_warmup_s']} s), TTFF {r['ttff_warm_server_s']}"
+        f" s, latencies {r['request_latencies_s']} s, steady "
+        f"{r['steady_fps']} frames/s")
+    add(check_child("cli_serving serve", r["launches"],
+                    times(1 + CLI_REQUESTS)))
+
+    train = os.path.join(workdir, "cli", "train")
+    tpaths = CT.prepare(train, CLI_EPOCHS, "mnist")
+    CT.build_cache(tpaths)
+    run = CT.run_trainer(train, tpaths, "bf16_full", CLI_TIMEOUT,
+                         counted=True)
+    summary = CT.summarize(run["rows"], "bf16_full", run["wall_s"])
+    log(f"cli_train: {json.dumps(summary)}")
+    add(check_child("cli_train", run["launches"], dict.fromkeys(KERNELS, 0)))
+    shutil.rmtree(tpaths["checkpoints"])    # the flagship's state, GBs
+
+    for case, scenario, kwargs in KN.points("all"):
+        if case in CLI_KNEE:
+            line = KN.run_point(case, scenario, kwargs, repeats=1)
+            if "error" in line:
+                raise AssertionError(f"bench_knee: {line}")
+            add({k: sum(v.values())
+                 for k, v in line["launches_in_run"].items()})
+            BODY_LAUNCHES.update(line["launches_in_run"]["flash_attention"])
+
+    rows = len(BA.SHAPES) * len(BA.DTYPES)
+    per_row = 1 + (1 + BA.TIMED_CHAINS) * BA.REPEATS
+    with launch_window() as window:
+        lines = BA.run("cuda")
+    window.check("bench_attention", {"flash_attention": rows * per_row,
+                                     "groupnorm_silu": 0},
+                 flash_body={"wgmma": rows // 2 * per_row,
+                             "tf32x3": rows // 2 * per_row})
+    missed = [x for x in lines if "ok" in x and not x["ok"]]
+    if missed:
+        raise AssertionError(f"bench_attention: parity missed: {missed}")
+    # each row's parity launch compares the kernel with its plain version:
+    # not a main-path launch
+    timed = {"wgmma": rows // 2 * (per_row - 1),
+             "tf32x3": rows // 2 * (per_row - 1)}
+    BODY_LAUNCHES.update(timed)
+    add({"flash_attention": sum(timed.values()), "groupnorm_silu": 0})
+    log(f"cli: launches {total}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 BENCH_REPEATS = 3      # timed requests a scenario (the CLI takes 5)
 
 
@@ -2476,10 +2628,20 @@ def main() -> int:
             os.makedirs(tp_dir)
             tp_launches = phase_tp(models, files, data_dir, tp_dir)
             quality_launches = phase_quality(models, workdir)
+            # one 8-stream DDIM batch at 512px: the launches do not depend
+            # on the batch
+            per_batch = expected_launches(
+                models, next(p for p in PATHS
+                             if p["name"] == "vae_denoise_ar4"), 1)
+            del models                      # the children need the memory
+            gc.collect()
+            torch.cuda.empty_cache()
+            cli_launches = phase_cli(per_batch, checkpoint_path(
+                files["checkpoints"], EVAL_CONFIG, 0, "test"), workdir)
             for k in KERNELS:
                 launches[k] += (train_launches[k] + eval_launches[k]
                                 + data_launches[k] + tp_launches[k]
-                                + quality_launches[k])
+                                + quality_launches[k] + cli_launches[k])
             print_totals(launches, "outside the bench phase")
             for k, n in phase_bench().items():
                 launches[k] += n

@@ -312,9 +312,13 @@ def _train_path(name: str) -> dict:
     return next(p for p in H.TRAIN_PATHS if p["name"] == name)
 
 
-def scenario_train(batch: int = 6, sizes: Sizes = FULL,
-                   device="cuda") -> Workload:
-    return _training(_train_path("train_flagship"), sizes, device, batch)
+def scenario_train(batch: int = 6, precision: str = "bf16_full",
+                   sizes: Sizes = FULL, device="cuda") -> Workload:
+    """``train_flagship`` at ``batch`` and the trainer's ``--precision``
+    (``f32``, ``bf16`` or ``bf16_full``; the scenario's is ``bf16_full``),
+    as ``bench.py``'s ``scenario_train(batch, precision)``."""
+    return _training(dict(_train_path("train_flagship"), precision=precision),
+                     sizes, device, batch)
 
 
 def scenario_train_tuned(sizes: Sizes = FULL, device="cuda") -> Workload:
@@ -410,9 +414,10 @@ def _expected(wl: Workload, device, requests: int) -> dict:
     return {k: n * requests * on_card for k, n in wl.expected.items()}
 
 
-def measure(name: str, wl: Workload, device, repeats: int) -> dict:
-    """Warm-up and ``repeats`` timed requests (one launch window, checked),
-    then the FLOP count and the host's cost of a wrapper call."""
+def time_requests(name: str, wl: Workload, device, repeats: int) -> dict:
+    """Warm-up and ``repeats`` timed requests (one launch window, checked):
+    the rate's median, quartiles and spread, the checksum and the
+    launches."""
     walls, replies = [], []
     with H.launch_window() as window:
         for _ in range(1 + repeats):
@@ -429,7 +434,24 @@ def measure(name: str, wl: Workload, device, repeats: int) -> dict:
     walls = walls[1:]
     rates = sorted(wl.items / w for w in walls)
     median = statistics.median(rates)
-    wall = statistics.median(walls)
+    requests = 1 + repeats
+    return dict(
+        value=median, unit=wl.unit,
+        q1=float(np.percentile(rates, 25)), q3=float(np.percentile(rates, 75)),
+        best=rates[-1], spread=(rates[-1] - rates[0]) / median,
+        tries=len(rates), precision=wl.precision, batch=wl.batch,
+        items_per_request=wl.items, wall_s_median=statistics.median(walls),
+        walls_s=walls, checksum=sums[0],
+        launches_per_request={k: {b: n / requests for b, n in v.items()}
+                              for k, v in _bodies(window).items()},
+        launches_implied=wl.expected,
+        launches_in_run=_bodies(window))
+
+
+def measure(name: str, wl: Workload, device, repeats: int) -> dict:
+    """``time_requests``, then the FLOP count and the host's cost of a
+    wrapper call."""
+    rec = time_requests(name, wl, device, repeats)
     if wl.reset is not None:
         wl.reset()
     t0 = time.perf_counter()
@@ -444,22 +466,11 @@ def measure(name: str, wl: Workload, device, repeats: int) -> dict:
                 f"{TRAIN_FLOPS_RTOL:.0%})")
     on_card = torch.device(device).type == "cuda"
     peak = H.MFU_PEAKS[wl.precision]
-    requests = 1 + repeats
     return dict(
-        value=median, unit=wl.unit,
-        vs_baseline=median / BASELINES[name],
-        q1=float(np.percentile(rates, 25)), q3=float(np.percentile(rates, 75)),
-        best=rates[-1], spread=(rates[-1] - rates[0]) / median,
-        tries=len(rates), precision=wl.precision, batch=wl.batch,
-        items_per_request=wl.items, wall_s_median=wall, walls_s=walls,
-        checksum=sums[0],
-        launches_per_request={k: {b: n / requests for b, n in v.items()}
-                              for k, v in _bodies(window).items()},
-        launches_implied=wl.expected,
-        launches_in_run=_bodies(window),
+        rec, vs_baseline=rec["value"] / BASELINES[name],
         flops_per_request=flops, flop_count_s=count_s,
         flops_analytic=wl.analytic_flops,
-        mfu=flops / (wall * peak) if on_card else None,
+        mfu=flops / (rec["wall_s_median"] * peak) if on_card else None,
         mfu_peak_flops=peak, mfu_peak_of=wl.precision,
         wrapper_host_us=({f"{k} {b}": s * 1e6
                           for (k, b), s in H.wrapper_host_cost().items()}

@@ -331,6 +331,12 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             "sd_video_gen_tpu_torch.tools.synthetic_checkpoint",
             "sd_video_gen_tpu_torch.tools.bench_harness",
             "sd_video_gen_tpu_torch.bench",
+            "sd_video_gen_tpu_torch.tools.bench_knee",
+            "sd_video_gen_tpu_torch.tools.bench_attention",
+            "sd_video_gen_tpu_torch.tools.bench_cli_serving",
+            "sd_video_gen_tpu_torch.tools.bench_cli_train",
+            "sd_video_gen_tpu_torch.tools.bench_ucf_loader",
+            "sd_video_gen_tpu_torch.tools.counted",
             "sd_video_gen_tpu_torch.examples.ball_demo",
             "sd_video_gen_tpu_torch.examples.serving_demo"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

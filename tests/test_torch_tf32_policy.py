@@ -24,7 +24,9 @@ ENTRY_POINTS = ["train/trainer.py", "predict/predict.py",
                 "predict/run_frame_interpolation.py", "utils/preprocess.py",
                 "tools/quality_modes.py", "tools/dpmpp_quality_gate.py",
                 "examples/ball_demo.py", "examples/serving_demo.py",
-                "bench.py"]
+                "bench.py", "tools/bench_knee.py", "tools/bench_attention.py",
+                "tools/bench_cli_serving.py", "tools/bench_cli_train.py",
+                "tools/bench_ucf_loader.py"]
 OFF = (False, False, "highest")
 
 
