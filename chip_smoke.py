@@ -32,7 +32,10 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               format (a yardstick); each wrapper's host cost per call is
               timed on a tiny shape
   4. serve    every predict path through the port's ``serve`` loop over a
-              Unix socket (one warm-up batch, then the path's requests):
+              Unix socket (one warm-up batch, which compiles the path's
+              predictor and decoder: one CUDA graph each, ``utils/jit.py``,
+              whose warm-up and capture seconds are printed; then the
+              path's requests, replays of those graphs):
               reply shapes, ``is_pred`` flags, finite latents and the exact
               launch count of each kernel are checked, warm predicted
               frames/s printed; every flash launch must have taken the
@@ -53,9 +56,11 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               embedding from seeded token ids: ``sd_txt2img_lms50``
               (``denoise_img_latents``, 50 LMS steps, then the decode),
               ``sd_txt2img_dpmpp20`` (20 DPM-Solver++ evaluations) and
-              ``sd_img2img_ddim`` (``img_to_img`` from DDIM step 10): the
-              UNet calls are counted (each of batch 2), launches exact,
-              images/s and UNet calls/s printed
+              ``sd_img2img_ddim`` (``img_to_img`` from DDIM step 10), each
+              a compiled program per stage (the first image captures them):
+              launches exact, images/s and UNet calls/s printed (the UNet
+              calls are counted in phase 7, on the eager image: a replay
+              runs no hook)
   6. check    a full-width 512px UNet forward and VAE decode with the
               kernels against the same with the plain versions (relative
               L2); guidance 0 as a Python number (one B-batch call) against
@@ -63,7 +68,23 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               against frame 1 of the full rollout, and the int8 rollouts
               against the bf16 ones, at full width; the slices at small
               widths in f32 on the card (kernels) against the CPU (plain)
-  7. train    three training paths through the port's ``Trainer`` (names and
+  7. jit      every phase-4 path and phase-5 SD path, compiled against
+              eager (``utils/jit.disable_jit``) on the same inputs: the
+              compiled request replays phase 4's or 5's graphs, its results
+              (context, predicted latents and frames; the image) must equal
+              eager's bit for bit, a result held from request 1 must be
+              unchanged after request 2 on other inputs, launches by body
+              equal eager's and the path's (the UNet calls of the eager SD
+              image counted by a hook, each of batch 2); compiled and eager
+              wall, the compiled request's device ms (CUDA events around
+              it) and the idle shares printed, with each path's compile
+              seconds; then the B=8 DDIM refiner's predictor (the
+              benchmark's ``vae_denoise_ar4_8streams``) is captured in debug
+              mode, its graph dumped (``CUDAGraph.debug_dump``) and its K1
+              (``flash_fwd_wgmma``) and K2 (``gn_nhwc_cluster``, or
+              ``gn_nhwc_stats`` + ``gn_nhwc_apply``) kernel nodes counted:
+              they must equal the launches a request counts
+  8. train    three training paths through the port's ``Trainer`` (names and
               sizes are the JAX bench's), each 2 warm-up optimizer steps, 8
               timed ones (one synchronise at the end) and one more for the
               last loss, on one fixed seeded batch with dropout on:
@@ -87,7 +108,7 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               more with ``dropout_p = 0`` (what the dropout costs a step);
               and a small f32 VAE-codec step on the card (kernels) is held
               against the CPU (plain)
-  8. eval     the entry points that read files, at full width: the files
+  9. eval     the entry points that read files, at full width: the files
               are made from seeds in a temporary directory (a Moving-MNIST
               ``.npy``, the config as JSON, the flagship transformer written
               with the port's checkpoint writer, the SD-v1.4 VAE and UNet
@@ -103,7 +124,7 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               launch counts by body (their shapes join phase 3's dry run);
               ``Trainer.fvd_validation`` on ``train_flagship``'s Trainer,
               both protocols; I3D on the card against the CPU
-  9. data     the training input at scale: a seeded Moving-MNIST-layout
+ 10. data     the training input at scale: a seeded Moving-MNIST-layout
               ``.npy`` at 128px becomes train and test frame caches through
               ``data/native_loader.main`` (the cache CLI; the ``.bin`` bytes
               are held against the dataset's clips, clips/s printed); then
@@ -125,28 +146,30 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               step; and a few ``--train_mode text`` steps from a labelled
               cache of a seeded 101-class dataset, whose embedder must get
               the cache header's class of every served clip
- 10. tp       tensor and data parallelism, rehearsed on the one card: each
+ 11. tp       tensor and data parallelism, rehearsed on the one card: each
               multi-process entry point as 4 worker processes (this script
               with ``--tp-worker``, ``LOCAL_RANK=0`` so every rank takes
               the card) joined in a gloo group (NCCL refuses two ranks on
               one device; every time printed carries ``backend gloo (one
               card, host-staged)``: no NCCL speed), each held against the
               same entry point in this process: ``predict.main --mesh
-              data=1,model=4 --denoise`` on phase 8's files (1 predicted
-              frame; 8 clips, whose 512px VAE mid block splits its batch
+              data=1,model=4 --denoise`` on phase 9's files (1 predicted
+              frame; 4 clips, whose 512px VAE mid block splits its batch
               over the ranks, and 3 clips, which take the ring), predicted
               latents and frames; ``predict_fvd.main --mesh data=4``
               (``fvd_native_ar4``), FVD, MSE and the real clips'
               statistics; ``train/trainer.main --mesh data=2,model=2``
-              from phase 9's frame cache at the flagship's widths, f32, 3
+              from phase 10's frame cache at the flagship's widths, f32, 3
               steps, dropout 0 (losses and the gathered checkpoint against
               one process) and 0.1 (replicated parameters bit-equal on
               every rank). Launches per rank exact (the ring's calls run
               no kernel), every per-rank kernel signature held against the
-              plain version in bf16 and f32 on the body the paths take (the
-              GroupNorm NCHW body, which none takes, is checked in phase 3
-              only), the bodies those of phase 8
- 11. quality  the port's quality evidence through the tools' ``main``, at
+              plain version in bf16, the dtype of every rank path that
+              reaches a kernel, on the body the paths take (f32 and the
+              GroupNorm NCHW body, which no rank path takes, are checked at
+              every full-width shape in phase 3), the bodies those of
+              phase 9
+ 12. quality  the port's quality evidence through the tools' ``main``, at
               their defaults on a seeded Moving-MNIST-layout stand-in
               (``--dataset mnist``: no cv2 here): ``tools/quality_modes``
               trains ``ar``, ``diff`` and ``future`` (20 epochs, dim 1024)
@@ -165,13 +188,13 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               B, every GroupNorm ``nhwc``); the gate's kernel shapes (one
               UNet call of each phase, Phase B's decode) join phase 3's dry
               run
- 12. cli      the port's benchmark tools (``sd_video_gen_tpu_torch/tools/``)
+ 13. cli      the port's benchmark tools (``sd_video_gen_tpu_torch/tools/``)
               at reduced depth on a Moving-MNIST-layout stand-in: the
               predict CLI as a child process (through ``tools/counted``,
-              which prints the child's launches by body) in batch mode, 3
+              which prints the child's launches by body) in batch mode, 2
               batches of 8 streams refined by the 10-step DDIM tail at
               512px (``bench_cli_serving``; its ``--timing`` line read), and
-              as a persistent server (``--serve``: ``SERVE_READY``, then 3
+              as a persistent server (``--serve``: ``SERVE_READY``, then 2
               requests over the socket); the trainer CLI, 2 epochs of the
               flagship at 128px from the native cache (``bench_cli_train``;
               its metrics log read, no kernel); the knee's points
@@ -180,18 +203,21 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               ``bench_attention``'s six rows, the dispatcher held to the
               port's limits (3e-5 f32, 2e-2 bf16) before each is timed. The
               parent's models are freed first; every child must exit 0 with
-              exact launches (a DDIM batch's 658 K1 + 2908 K2, 3 batches in
-              batch mode, 4 with the server's warm-up), every K1 launch on
-              ``wgmma`` / ``tf32x3`` as routed and every K2 launch ``nhwc``
- 13. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
+              exact launches (a DDIM batch's 658 K1 + 2908 K2, 2 batches in
+              batch mode, 3 with the server's warm-up), every K1 launch on
+              ``wgmma`` / ``tf32x3`` as routed and every K2 launch ``nhwc``;
+              the predict CLI and the knee's serving point run compiled (a
+              replay adds what its capture counted)
+ 14. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
               this process: its ten scenarios (the JAX bench's names and
-              sizes), each warmed up and timed over BENCH_REPEATS requests
+              sizes), each warmed up (a serving request is one compiled
+              program, captured there) and timed over BENCH_REPEATS requests
               with exact launches by body and every repeat's checksum equal
               to the warm-up's, its FLOPs counted with the plain versions;
               then, once every untraced timing is taken, one traced request
               of each (device time by kernel bucket, idle share); each
               scenario's JSON record and the aggregate after it are printed
- 14. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
+ 15. tune     only with ``--tune``: at every bf16 GroupNorm signature of the
               two 512px refiner paths, the NHWC body as planned, with each
               of its modes pinned, and the NCHW body, device time inside
               CUDA graphs
@@ -214,6 +240,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -256,7 +283,8 @@ from sd_video_gen_tpu_torch.ops.groupnorm import (groupnorm_silu,
 from sd_video_gen_tpu_torch.parallel import multihost
 from sd_video_gen_tpu_torch.predict import predict as P
 from sd_video_gen_tpu_torch.predict import serve as S
-from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
+from sd_video_gen_tpu_torch.predict.predict import (make_decode_fn,
+                                                    make_predict_fn)
 from sd_video_gen_tpu_torch.tools import dpmpp_quality_gate as G
 from sd_video_gen_tpu_torch.tools import quality_modes as Q
 from sd_video_gen_tpu_torch.tools.bench_harness import (
@@ -272,6 +300,7 @@ from sd_video_gen_tpu_torch.train import trainer as T
 from sd_video_gen_tpu_torch.train.optim import Adam
 from sd_video_gen_tpu_torch.train.trainer import (Trainer, TrainState,
                                                   encode_or_passthrough)
+from sd_video_gen_tpu_torch.utils import jit as J
 
 # A small f32 VAE-codec train step, card (kernels) vs CPU (plain), dropout
 # off: loss components relative, first moments (the gradient) relative L2.
@@ -329,7 +358,7 @@ CACHED_FRAME1_REL_L2 = 5e-2
 # through 12 layers; the JAX package's own tests hold int8 to "a few
 # percent" of the float forward at small widths.
 INT8_REL_L2 = 0.15
-# The evaluation paths (phase 8), entry points that read files as a user's
+# The evaluation paths (phase 9), entry points that read files as a user's
 # run does: ``fvd_native_ar4`` is ``evaluation/predict_fvd.main`` with the
 # native-resolution refiner from DDIM step 48 (the JAX bench's
 # ``vae_denoise_native_ar4`` under the FVD CLI's defaults);
@@ -355,7 +384,7 @@ EVAL_PATHS = [dict(PATH_DEFAULTS, **p) for p in (
 # largest value.
 I3D_REL_L2 = 1e-4
 I3D_SHAPE = (2, 9, 224, 224, 3)
-# The data phase (phase 9): the reference's UCF config, every value of
+# The data phase (phase 10): the reference's UCF config, every value of
 # configs/11_27_ucf_final.yml but two: one epoch, and clips of 10 frames (its
 # 5 context frames and the 5 to predict, as ``train_flagship``'s batch
 # holds them). The frames: a Moving-MNIST-layout .npy of DATA_SEQS
@@ -379,7 +408,13 @@ DATA_TEXT_CLIPS = (24, 12)
 FLASH_BODIES = ("wgmma", "tf32x3", "fma")
 # Flash launches by body over the main path's counted windows (``counted``).
 BODY_LAUNCHES: collections.Counter = collections.Counter()
-# The flash rows of the f32 training step's dry run (phase 7), for the
+# Phase 4's compiled entry points by path name, replayed by phase ``jit``.
+SERVED: dict = {}
+# Phase jit: the path whose compiled request's CUDA graph is dumped
+# (``CUDAGraph.debug_dump``) and its kernel nodes counted: the B=8 DDIM
+# refiner of the benchmark's ``vae_denoise_ar4_8streams``.
+JIT_DUMP_STREAMS = 8
+# The flash rows of the f32 training step's dry run (phase 8), for the
 # kernels line.
 TRAIN_F32_ROWS: list = []
 
@@ -400,8 +435,9 @@ def cuda_ms(fn, iters: int) -> float:
 
 def timed(plain, kern) -> tuple[float, float]:
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain with as many
-    launches as fill about 25 ms of the plain version (3 to 100)."""
-    iters = int(min(100, max(3, 25.0 / max(cuda_ms(plain, 1), 1e-3))))
+    launches as fill about 10 ms of the plain version (3 to 100): CUDA
+    events resolve such a window to well under 1%."""
+    iters = int(min(100, max(3, 10.0 / max(cuda_ms(plain, 1), 1e-3))))
     p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -777,12 +813,22 @@ def counted(window) -> dict:
     return window.launches
 
 
+def log_compiles(name, compiles) -> None:
+    """Each compile's seconds (``utils/jit.COMPILES``): warm-up, capture."""
+    for c in compiles:
+        log(f"{name}: compiled {c['name']} {c['shapes']}: warm-up "
+            f"{c['warmup_s']:.3f} s + capture {c['capture_s']:.3f} s; the "
+            f"graph's launches {c['graph_launches']}")
+
+
 def phase_serve(models, path) -> dict:
     name, batch_clips, pred = path["name"], path["batch_clips"], path["pred"]
     codec, predict = predict_fn(models, path, checked=True)
+    decode = make_decode_fn(codec)
     embedder = (ClassNameEmbedder(TEXT_CLASSES, TEXT_DIM,
                                   device=models["device"])
                 if path["labels"] else None)
+    n_compiles = len(J.COMPILES)
     sock_dir = tempfile.TemporaryDirectory(prefix="sdvg")
     sock = os.path.join(sock_dir.name, "serve.sock")
     if len(sock) > 100:
@@ -791,9 +837,9 @@ def phase_serve(models, path) -> dict:
 
     def run_server():
         try:
-            S.serve(sock, predict, codec.decode_latents,
-                    batch_clips=batch_clips, frames_per_clip=CONTEXT,
-                    frame_size=FRAME, embedder=embedder)
+            S.serve(sock, predict, decode, batch_clips=batch_clips,
+                    frames_per_clip=CONTEXT, frame_size=FRAME,
+                    embedder=embedder)
         except Exception as e:  # re-raised by the main thread below
             errors.append(e)
 
@@ -854,53 +900,61 @@ def phase_serve(models, path) -> dict:
     log(f"{name}: warm predicted frames/s at B={batch_clips}: {full} (mean "
         f"{float(np.mean(full)):.4f}); total "
         f"{time.perf_counter() - t_start:.1f} s")
+    compiles = J.COMPILES[n_compiles:]
+    log_compiles(name, compiles)
+    if [c["name"] for c in compiles] != ["predict_impl", "decode_impl"]:
+        raise AssertionError(f"{name}: the serving shape compiled "
+                             f"{[c['name'] for c in compiles]}, not once "
+                             f"predict_impl and decode_impl")
+    SERVED[name] = dict(codec=codec, predict=predict, decode=decode,
+                        embedder=embedder, compiles=compiles)
     return counted(window)
 
 
-def phase_sd(models) -> dict:
-    """The three SD paths, each ``SD_RUNS`` images (the first a warm-up) with
-    its UNet calls counted by a hook."""
+def sd_launches(models, path) -> dict:
+    """Launches of one image of an SD path: the UNet calls and the decode;
+    img2img encodes first."""
+    return {k: path["unet_calls"] * un + dec
+            + (enc if path["sampler"] == "ddim" else 0)
+            for k, (enc, dec, un) in passes_per_model(models).items()}
+
+
+def phase_sd(models) -> tuple:
+    """The three SD paths, each ``SD_RUNS`` images (the first a warm-up,
+    which compiles the path's programs); returns their launches and the
+    pipeline with its inputs (phase ``jit`` replays the same programs)."""
     pipe, emb, img = sd_inputs(models)
-    total = {k: 0 for k in KERNELS}
+    total, compiles = {k: 0 for k in KERNELS}, {}
     for path in SD_PATHS:
-        name, batches, walls = path["name"], [], []
-        hook = pipe.unet.register_forward_pre_hook(
-            lambda m, args: batches.append(args[0].shape[0]))
-        try:
-            with launch_window() as window:       # the main path
-                for run in range(SD_RUNS):
-                    t0 = time.perf_counter()
-                    out = run_sd(pipe, path, emb, img, seed=run)
-                    pixels = out.cpu().numpy()
-                    walls.append(time.perf_counter() - t0)
-                    if (pixels.shape != (1, HI_RES, HI_RES, 3)
-                            or pixels.dtype != np.uint8
-                            or pixels.min() == pixels.max()):
-                        raise AssertionError(
-                            f"{name}: image {pixels.shape} {pixels.dtype}, "
-                            f"levels {pixels.min()}..{pixels.max()}")
-        finally:
-            hook.remove()
+        name, walls = path["name"], []
+        n_compiles = len(J.COMPILES)
+        with launch_window() as window:       # the main path
+            for run in range(SD_RUNS):
+                t0 = time.perf_counter()
+                out = run_sd(pipe, path, emb, img, seed=run)
+                pixels = out.cpu().numpy()
+                walls.append(time.perf_counter() - t0)
+                if (pixels.shape != (1, HI_RES, HI_RES, 3)
+                        or pixels.dtype != np.uint8
+                        or pixels.min() == pixels.max()):
+                    raise AssertionError(
+                        f"{name}: image {pixels.shape} {pixels.dtype}, "
+                        f"levels {pixels.min()}..{pixels.max()}")
         calls = path["unet_calls"]
-        if batches != [2] * (SD_RUNS * calls):
-            raise AssertionError(
-                f"{name}: {len(batches)} UNet calls of batches "
-                f"{sorted(set(batches))}; expected {SD_RUNS} x {calls} of "
-                f"batch 2")
-        # an image: the UNet calls and the decode; img2img encodes first
-        window.check(name, {
-            k: SD_RUNS * (calls * un + dec
-                          + (enc if path["sampler"] == "ddim" else 0))
-            for k, (enc, dec, un) in passes_per_model(models).items()})
+        window.check(name, {k: SD_RUNS * n
+                            for k, n in sd_launches(models, path).items()})
+        compiles[name] = J.COMPILES[n_compiles:]
+        log_compiles(name, compiles[name])
         warm = walls[1:]
-        log(f"{name}: {calls} UNet calls of batch 2 an image; walls "
+        log(f"{name}: {calls} UNet calls of batch 2 an image (counted on the "
+            f"eager request in phase jit: a replay runs no hook); walls "
             f"{[round(w, 3) for w in walls]} s (the first a warm-up); warm "
             f"images/s {[round(1 / w, 4) for w in warm]} (mean "
             f"{float(np.mean([1 / w for w in warm])):.4f}), UNet calls/s "
             f"{float(np.mean([calls / w for w in warm])):.2f}")
         for k, n in counted(window).items():
             total[k] += n
-    return total
+    return total, (pipe, emb, img, compiles)
 
 
 def _rel_l2(fn) -> tuple[float, float, float]:
@@ -1060,6 +1114,212 @@ def phase_check(models):
     _check_rollout_variants(on_card["pixel"], frames,
                             "f32 at small width on the card",
                             SMALL_CACHED_FRAME1_REL_L2, INT8_REL_L2)
+
+
+def timed_request(fn):
+    """``fn()``'s result, wall seconds and the ms between CUDA events
+    recorded before and after it (for a compiled request, the device time of
+    its copies and replays: the host enqueues a graph in one launch)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def check_compiled(name, request, expected, eager_hook=None) -> dict:
+    """A compiled request against the same request eagerly (``disable_jit``)
+    on the same inputs: results equal bit for bit; a result held from
+    request 1 unchanged by request 2 (on other inputs, which must give
+    another result); launches by body equal eager's and ``expected``.
+    ``request(i)`` runs on input set i and returns a tuple of tensors;
+    ``eager_hook`` is entered around the eager request. Prints and returns
+    the walls, the device ms and the idle shares."""
+    with launch_window() as compiled_w:
+        one, wall_c, ms_c = timed_request(lambda: request(0))
+    held = [x.clone() for x in one]
+    two, _, _ = timed_request(lambda: request(1))
+    with J.disable_jit(), launch_window() as eager_w, (
+            eager_hook or contextlib.nullcontext)():
+        eager, wall_e, span_e = timed_request(lambda: request(0))
+    same = [torch.equal(a, b) for a, b in zip(one, eager)]
+    if not all(same):
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(one, eager)]
+        raise AssertionError(f"jit: {name}: compiled differs from eager "
+                             f"(equal {same}, rel L2 {rel})")
+    if not all(torch.equal(a, b) for a, b in zip(held, one)):
+        raise AssertionError(f"jit: {name}: request 2 overwrote the result "
+                             f"held from request 1")
+    if all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"jit: {name}: other inputs, the same result")
+    got = (compiled_w.launches, compiled_w.bodies, compiled_w.gn_bodies)
+    if got != (eager_w.launches, eager_w.bodies, eager_w.gn_bodies) \
+            or compiled_w.launches != expected:
+        raise AssertionError(
+            f"jit: {name}: launches compiled {got}, eager "
+            f"{(eager_w.launches, eager_w.bodies, eager_w.gn_bodies)}, the "
+            f"path implies {expected}")
+    compiled_w.check(f"{name} (compiled)", expected)
+    res = dict(compiled_wall_ms=wall_c * 1e3, device_ms=ms_c,
+               compiled_idle=1 - ms_c / (wall_c * 1e3),
+               eager_wall_ms=wall_e * 1e3, eager_span_ms=span_e,
+               eager_idle=1 - ms_c / (wall_e * 1e3),
+               launches=compiled_w.launches)
+    log(f"jit: {name}: compiled == eager bit for bit "
+        f"({len(one)} outputs); the result held from request 1 unchanged "
+        f"after request 2; launches a request {compiled_w.launches} by body "
+        f"{compiled_w.bodies} {compiled_w.gn_bodies}, eager's the same; "
+        f"compiled wall {res['compiled_wall_ms']:.2f} ms, device "
+        f"{ms_c:.2f} ms (CUDA events around the request), idle "
+        f"{res['compiled_idle']:.1%}; eager wall "
+        f"{res['eager_wall_ms']:.2f} ms (events span {span_e:.2f} ms), idle "
+        f"{res['eager_idle']:.1%} against the compiled device ms (the same "
+        f"kernels)")
+    counted(compiled_w)
+    return res
+
+
+def jit_serving_path(models, path) -> dict:
+    """Phase 4's compiled entry points of ``path`` (their graphs captured by
+    its serve warm-up) against the same eagerly."""
+    s = SERVED[path["name"]]
+    B, rng = path["batch_clips"], np.random.default_rng(3)
+    frames = [torch.from_numpy(rng.integers(
+        0, 256, (B, CONTEXT, FRAME, FRAME, 3), dtype=np.uint8))
+        for _ in range(2)]
+    text = [None, None]
+    if s["embedder"] is not None:
+        text = [s["embedder"](rng.integers(0, TEXT_CLASSES, B).tolist())
+                for _ in range(2)]
+
+    def request(i):
+        context, preds = s["predict"](frames[i], text[i])
+        seq = torch.cat([context[:, :-1], preds], dim=1)
+        return context, preds, s["decode"](seq.reshape(-1, seq.shape[-1]))
+
+    res = check_compiled(path["name"], request,
+                         expected_launches(models, path, 1))
+    res["capture_s"] = sum(c["warmup_s"] + c["capture_s"]
+                           for c in s["compiles"])
+    return res
+
+
+def jit_sd_path(models, path, sd) -> dict:
+    """An SD path's compiled image (phase 5 compiled it) against the same
+    eagerly, whose UNet calls a hook counts (each of batch 2)."""
+    pipe, emb, img, compiles = sd
+    batches = []
+
+    @contextlib.contextmanager
+    def hook():
+        handle = pipe.unet.register_forward_pre_hook(
+            lambda m, args: batches.append(args[0].shape[0]))
+        try:
+            yield
+        finally:
+            handle.remove()
+
+    res = check_compiled(path["name"],
+                         lambda i: (run_sd(pipe, path, emb, img, seed=i),),
+                         sd_launches(models, path), eager_hook=hook)
+    if batches != [2] * path["unet_calls"]:
+        raise AssertionError(f"{path['name']}: {len(batches)} UNet calls of "
+                             f"batches {sorted(set(batches))}; expected "
+                             f"{path['unet_calls']} of batch 2")
+    res["capture_s"] = sum(c["warmup_s"] + c["capture_s"]
+                           for c in compiles[path["name"]])
+    return res
+
+
+def graph_kernel_nodes(dot_path) -> collections.Counter:
+    """Kernel nodes of a ``CUDAGraph.debug_dump`` file by kernel: each node
+    statement (``"graph_<g>_node_<n>"[...];``) counted once for each of the
+    package's kernels its text names."""
+    names = ("flash_fwd_wgmma", "flash_fwd_tf32x3", "gn_nhwc_cluster",
+             "gn_nhwc_stats", "gn_nhwc_apply")
+    with open(dot_path) as f:
+        text = f.read()
+    nodes = collections.Counter()
+    for m in re.finditer(r'^"?graph_\d+_node_\d+"?\s*\[(.*?)\];\s*$', text,
+                         re.M | re.S):
+        nodes["all"] += 1
+        for name in names:
+            if name in m[1]:
+                nodes[name] += 1
+    return nodes
+
+
+def jit_graph_dump(models, workdir) -> dict:
+    """The B=8 DDIM refiner's compiled predictor captured in debug mode, its
+    graph dumped and its kernel nodes counted: K1's ``flash_fwd_wgmma``
+    nodes must equal the flash launches a request counts, K2's nodes (one
+    ``gn_nhwc_cluster``, or a ``gn_nhwc_stats`` and a ``gn_nhwc_apply``, a
+    call) the GroupNorm launches."""
+    path = dict(next(p for p in PATHS if p["name"] == "vae_denoise_ar4"),
+                name="vae_denoise_ar4_8streams", batch_clips=JIT_DUMP_STREAMS)
+    frames = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (JIT_DUMP_STREAMS, CONTEXT, FRAME, FRAME, 3),
+        dtype=np.uint8))
+    J.BACKEND.debug = True
+    try:
+        _, predict = predict_fn(models, path)
+        with launch_window() as window:
+            predict(frames)
+    finally:
+        J.BACKEND.debug = False
+    dot = os.path.join(workdir, "ddim8.dot")
+    t0 = time.perf_counter()
+    (graph,) = predict.impl.graphs()
+    graph.debug_dump(dot)
+    nodes = graph_kernel_nodes(dot)
+    size = os.path.getsize(dot)
+    os.unlink(dot)
+    want = window.launches
+    k2 = nodes["gn_nhwc_cluster"] + nodes["gn_nhwc_stats"]
+    log(f"jit: {path['name']} predictor graph (debug_dump, {size / 2 ** 20:.1f}"
+        f" MiB, read in {time.perf_counter() - t0:.1f} s): {nodes['all']} "
+        f"nodes; K1 flash_fwd_wgmma {nodes['flash_fwd_wgmma']}, tf32x3 "
+        f"{nodes['flash_fwd_tf32x3']}; K2 gn_nhwc_cluster "
+        f"{nodes['gn_nhwc_cluster']}, gn_nhwc_stats {nodes['gn_nhwc_stats']}"
+        f", gn_nhwc_apply {nodes['gn_nhwc_apply']}; counted launches a "
+        f"request {want} by body {window.bodies} {window.gn_bodies}")
+    if (nodes["flash_fwd_wgmma"] != want["flash_attention"]
+            or nodes["flash_fwd_tf32x3"] or k2 != want["groupnorm_silu"]
+            or nodes["gn_nhwc_apply"] != nodes["gn_nhwc_stats"]
+            or not want["flash_attention"] or not want["groupnorm_silu"]):
+        raise AssertionError(f"jit: the graph's kernel nodes {dict(nodes)} "
+                             f"are not the counted launches {want}")
+    counted(window)
+    return window.launches
+
+
+def phase_jit(models, sd, workdir) -> dict:
+    """Every phase-4 serving path and phase-5 SD path compiled against eager
+    (``check_compiled``), then the graph dump of the B=8 DDIM refiner;
+    returns the compiled requests' launches. Frees phase 4's programs."""
+    t0 = time.perf_counter()
+    total, rows = dict.fromkeys(KERNELS, 0), {}
+    for path in PATHS:
+        rows[path["name"]] = jit_serving_path(models, path)
+    SERVED.clear()
+    for path in SD_PATHS:
+        rows[path["name"]] = jit_sd_path(models, path, sd)
+    for res in rows.values():
+        for k in KERNELS:
+            total[k] += res["launches"][k]
+    torch.cuda.empty_cache()
+    for k, n in jit_graph_dump(models, workdir).items():
+        total[k] += n
+    log("jit: table " + json.dumps({n: {k: v for k, v in r.items()
+                                        if k != "launches"}
+                                    for n, r in rows.items()}))
+    log(f"jit: {len(rows)} paths compiled == eager; launches {total}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def train_signatures(trainers) -> collections.Counter:
@@ -1249,7 +1509,7 @@ def check_small_train_step():
 
 def phase_train(models, workdir) -> tuple:
     """The three training paths; returns their launches in all and
-    (path, Trainer) of ``train_flagship`` (phase 8 validates it)."""
+    (path, Trainer) of ``train_flagship`` (phase 9 validates it)."""
     enc_launches = {k: v[0] for k, v in passes_per_model(models).items()}
     total = {k: 0 for k in KERNELS}
     by_name = {p["name"]: p for p in TRAIN_PATHS}
@@ -1473,6 +1733,63 @@ def check_i3d(i3d_path):
         raise AssertionError("I3D: the card disagrees with the CPU")
 
 
+def check_sd_files(files) -> None:
+    """The file constructors on the full-size weight files the evaluation
+    paths read: ``SDPipeline.from_pretrained_dir`` on a diffusers directory
+    of links to them, ``VAECodec.from_checkpoint`` on the VAE file. Their
+    parameters must equal, bit for bit, the modules the predict CLI builds
+    from the same files (``predict.sd_modules``); the codec's posterior
+    sample with zero noise is its mean, a draw from a generator is finite
+    and another; the VAE's sampled forward is finite."""
+    t0 = time.perf_counter()
+    root = os.path.join(files["dir"], "diffusers")
+    for sub, name, key in (("vae", "diffusion_pytorch_model.bin", "vae"),
+                           ("unet", "diffusion_pytorch_model.bin", "unet"),
+                           ("text_encoder", "pytorch_model.bin", "clip")):
+        os.makedirs(os.path.join(root, sub))
+        os.symlink(files[key], os.path.join(root, sub, name))
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    pipe = SDPipeline.from_pretrained_dir(root, dev, bf16)
+    cli = P.sd_modules(argparse.Namespace(
+        **{f"{k}_weights": files[k] for k in ("vae", "unet", "clip")}),
+        dev, bf16)
+    for mine, theirs in zip((pipe.vae, pipe.unet, pipe.clip), cli):
+        want = theirs.state_dict()
+        if not all(torch.equal(v, want[k])
+                   for k, v in mine.state_dict().items()):
+            raise AssertionError(f"from_pretrained_dir: {type(mine).__name__}"
+                                 f" differs from the file's")
+    del cli
+    codec = VAECodec.from_checkpoint(FRAME, files["vae"], dev, bf16)
+    if not all(torch.equal(v, pipe.vae.state_dict()[k])
+               for k, v in codec.model.state_dict().items()):
+        raise AssertionError("VAECodec.from_checkpoint: weights differ")
+    frames = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (2, CONTEXT, FRAME, FRAME, 3), dtype=np.uint8))
+    n, h = 2 * CONTEXT, codec.latent_hw
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        mean = codec.encode_frames(frames)
+        zero = codec.encode_frames(frames, noise=torch.zeros(
+            n, codec.latent_channels, h, h, device=dev))
+        drawn = assert_finite("posterior sample",
+                              codec.encode_frames(frames, generator=g))
+        x = frames[:1, 0].to(dev).permute(0, 3, 1, 2).float() / 127.5 - 1
+        dec, _, _ = pipe.vae(x, generator=g, sample=True)
+        assert_finite("sampled VAE forward", dec)
+    if not torch.equal(zero, mean) or torch.equal(drawn, mean):
+        raise AssertionError("VAECodec: the posterior sample is not "
+                             "mean + std * noise")
+    log(f"eval: SDPipeline.from_pretrained_dir (diffusers layout) and "
+        f"VAECodec.from_checkpoint on the full-size files: parameters equal "
+        f"the predict CLI's bit for bit; posterior sample with zero noise == "
+        f"mean, a generator's draw finite and another (mean |draw - mean| "
+        f"{(drawn - mean).abs().mean().item():.4f}); sampled VAE forward "
+        f"{tuple(dec.shape)} finite; {time.perf_counter() - t0:.1f} s")
+    del pipe, codec
+    torch.cuda.empty_cache()
+
+
 def phase_eval(models, files, sd_files, flagship) -> dict:
     """The two evaluation paths, ``fvd_validation`` on the ``train_flagship``
     Trainer and I3D card vs CPU; returns the paths' launches."""
@@ -1490,6 +1807,7 @@ def phase_eval(models, files, sd_files, flagship) -> dict:
         torch.cuda.empty_cache()
     check_trainer_fvd(*flagship, load_i3d(files["i3d"], "cuda"))
     check_i3d(files["i3d"])
+    check_sd_files(files)
     log(f"eval: {time.perf_counter() - t0:.1f} s")
     return total
 
@@ -1758,7 +2076,7 @@ def phase_data(workdir) -> dict:
     return counted(window)
 
 
-# The tp phase (phase 10): the three multi-process entry points as four
+# The tp phase (phase 11): the three multi-process entry points as four
 # worker processes on the one card (this script again, ``--tp-worker``),
 # joined in a gloo group (NCCL refuses two ranks on one device; gloo stages
 # its collectives of CUDA tensors through host memory, the port's ring
@@ -1772,8 +2090,8 @@ def phase_data(workdir) -> dict:
 TP_WORLD, TP_BACKEND = 4, "backend gloo (one card, host-staged)"
 TP_TIMEOUT = 420                           # seconds, a set of four workers
 TP_RUNS = [
-    dict(name="tp_predict_denoise_8", entry="predict",
-         mesh="data=1,model=4", clips=8, route="batch"),
+    dict(name="tp_predict_denoise_4", entry="predict",
+         mesh="data=1,model=4", clips=4, route="batch"),
     dict(name="tp_predict_denoise_3", entry="predict",
          mesh="data=1,model=4", clips=3, route="ring"),
     dict(name="tp_fvd_native", entry="fvd", mesh="data=4"),
@@ -1822,7 +2140,10 @@ def tp_argv(run, files, data_dir) -> list:
 
 def tp_entry(run, argv):
     """Drive ``run``'s entry point in this process with spies on what it
-    computes: (its return value, what the spies saw)."""
+    computes: (its return value, what the spies saw). Eager
+    (``disable_jit``), as every rank of a sharded run is: the spies copy
+    what they see to the host between the ops, which a capture cannot
+    hold."""
     from sd_video_gen_tpu_torch.evaluation import predict_fvd as PPF
     seen = collections.defaultdict(list)
     real = (P.make_predict_fn, P.build_codec, PPF.make_sharded_features,
@@ -1878,7 +2199,8 @@ def tp_entry(run, argv):
     P.make_predict_fn, P.build_codec = make, codec
     PPF.make_sharded_features, Trainer.fit = stats, fit
     try:
-        with contextlib.redirect_stdout(io.StringIO()) as out:
+        with contextlib.redirect_stdout(io.StringIO()) as out, \
+                J.disable_jit():
             main = {"predict": P.main, "fvd": PPF.main,
                     "train": T.main}[run["entry"]]
             ret = main(argv)
@@ -2158,17 +2480,18 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
             BODY_LAUNCHES.update(res["bodies"])
             for k in KERNELS:
                 total[k] += res["launches"][k]
-    # the NCHW body, which no path takes, is checked at every full-width
-    # shape in phase 3; here it is left out (the script's time bound)
-    rows = check_signatures(sigs, (torch.bfloat16, torch.float32),
-                            what="tp per-rank: ", nchw=False)
+    # every rank path that reaches a kernel runs it in bf16 on the NHWC
+    # body; f32 and the NCHW body are checked at every full-width shape in
+    # phase 3, and are left out here (the script's time bound)
+    rows = check_signatures(sigs, (torch.bfloat16,), what="tp per-rank: ",
+                            nchw=False)
     log(f"tp: {len(rows)} kernel rows at the per-rank shapes agree; "
         f"launches of the {TP_WORLD}-rank runs {total}; "
         f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
     return total
 
 
-# The quality phase (phase 11): the port's two quality tools at their
+# The quality phase (phase 12): the port's two quality tools at their
 # defaults (20 epochs, 14 clips in batches of 7, Phase B at 8 clips of
 # 512px) on the Moving-MNIST-layout stand-in (``--dataset mnist``: no cv2
 # on the card's machine, so neither the PNG tree nor the text mode).
@@ -2343,7 +2666,7 @@ def phase_quality(models, workdir) -> dict:
     return total
 
 
-# The cli phase (phase 12): the port's benchmark tools at reduced depth, on
+# The cli phase (phase 13): the port's benchmark tools at reduced depth, on
 # the Moving-MNIST-layout stand-in (``--dataset mnist``: no cv2 here). The
 # predict CLI as a child process, in batch mode (CLI_BATCHES batches of
 # CLI_STREAMS) and as a server (its warm-up batch and CLI_REQUESTS requests);
@@ -2352,7 +2675,7 @@ def phase_quality(models, workdir) -> dict:
 # tool's six rows. The children run through ``tools/counted``, whose
 # COUNTED line carries their launches by body. It runs before the bench
 # phase, whose traces raise the host's cost of every later launch.
-CLI_STREAMS, CLI_BATCHES, CLI_REQUESTS, CLI_EPOCHS = 8, 3, 3, 2
+CLI_STREAMS, CLI_BATCHES, CLI_REQUESTS, CLI_EPOCHS = 8, 2, 2, 2
 CLI_KNEE = ("train_bf16_full_b48", "denoise_b16")
 CLI_TIMEOUT = 300          # seconds, one child
 
@@ -2469,7 +2792,7 @@ def phase_cli(per_batch, checkpoint, workdir) -> dict:
     return total
 
 
-BENCH_REPEATS = 3      # timed requests a scenario (the CLI takes 5)
+BENCH_REPEATS = 2      # timed requests a scenario (the CLI takes 5)
 
 
 def phase_bench() -> dict:
@@ -2597,6 +2920,9 @@ def main() -> int:
         return tp_worker(*args.tp_worker)
     strict_f32()
     t0 = time.perf_counter()
+
+    def mark(name):
+        log(f"phase {name}: starts at {time.perf_counter() - t0:.1f} s")
     phase_device()
     with tempfile.TemporaryDirectory(prefix="sdvg") as workdir:
         eval_dir = os.path.join(workdir, "eval")
@@ -2609,14 +2935,24 @@ def main() -> int:
             sigs = path_signatures(models)
             sigs.update(eval_signatures(files))
             sigs.update(quality_signatures(models))
+            mark("kernel")
             summary = phase_kernel(merge_signatures(sigs.values()))
             launches = {k: 0 for k in KERNELS}
+            mark("serve")
             for path in PATHS:
                 for k, n in phase_serve(models, path).items():
                     launches[k] += n
-            for k, n in phase_sd(models).items():
+            mark("sd")
+            sd_launches_, sd = phase_sd(models)
+            for k, n in sd_launches_.items():
                 launches[k] += n
+            mark("check")
             phase_check(models)
+            mark("jit")
+            for k, n in phase_jit(models, sd, workdir).items():
+                launches[k] += n
+            del sd
+            mark("train")
             train_launches, flagship = phase_train(models, workdir)
             eval_launches = phase_eval(models, files, sd_files, flagship)
             del flagship
@@ -2626,6 +2962,7 @@ def main() -> int:
                 data_launches = phase_data(data_dir)
             tp_dir = os.path.join(workdir, "tp")
             os.makedirs(tp_dir)
+            mark("tp")
             tp_launches = phase_tp(models, files, data_dir, tp_dir)
             quality_launches = phase_quality(models, workdir)
             # one 8-stream DDIM batch at 512px: the launches do not depend
@@ -2636,6 +2973,7 @@ def main() -> int:
             del models                      # the children need the memory
             gc.collect()
             torch.cuda.empty_cache()
+            mark("cli")
             cli_launches = phase_cli(per_batch, checkpoint_path(
                 files["checkpoints"], EVAL_CONFIG, 0, "test"), workdir)
             for k in KERNELS:
@@ -2643,6 +2981,7 @@ def main() -> int:
                                 + data_launches[k] + tp_launches[k]
                                 + quality_launches[k] + cli_launches[k])
             print_totals(launches, "outside the bench phase")
+            mark("bench")
             for k, n in phase_bench().items():
                 launches[k] += n
             if args.tune:

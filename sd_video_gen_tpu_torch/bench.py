@@ -32,10 +32,15 @@ The scenarios keep ``bench.py``'s names, order and sizes (their sizes are
 A serving request is what ``bench.py:306-316`` times: the VAE (or pixel)
 encode with SOS, the rollout with its refiner, the final decode of the
 predicted latents, and a device-side sum of the uint8 frames fetched to the
-host as the sync. A training request is ``TRAIN_TIMED`` optimizer steps
-through ``Trainer.train_loop`` on one fixed batch (its frames cross to the
-card every step, as from a loader), from the state the scenario started
-with.
+host as the sync. As the JAX bench jits it, the request is one compiled
+program (``utils/jit.py``: one CUDA graph, captured in the warm-up, whose
+seconds each scenario prints on a ``compiles`` line before its record;
+``replay_ms``, the median device time of the timed replays from CUDA events
+around them); ``--eager`` runs every scenario eagerly instead (the
+comparison of the two). A training request, eager, is ``TRAIN_TIMED``
+optimizer steps through ``Trainer.train_loop`` on one fixed batch (its
+frames cross to the card every step, as from a loader), from the state the
+scenario started with.
 
 Each scenario is built, run once to warm up, timed over ``REPEATS`` requests
 (each closed by ``torch.cuda.synchronize``), and freed before the next. Its
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -104,6 +110,7 @@ from sd_video_gen_tpu_torch.models.unet import UNetConfig
 from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.tools import bench_harness as H
+from sd_video_gen_tpu_torch.utils import jit as J
 
 REPEATS = 5
 # The JAX bench's denominators (bench.py:76-93), kept under the same name:
@@ -176,6 +183,7 @@ class Workload:
     expected: dict
     flash_body: str
     probe: Callable
+    program: object = None      # the compiled request (serving), a jit
     probe_per_request: int = 1
     reset: Callable | None = None
     keep: dict = dataclasses.field(default_factory=dict)
@@ -210,21 +218,28 @@ def _serving(path: dict, sizes: Sizes, device) -> Workload:
                                   hi_res=sizes.hi_res)
     frames = torch.from_numpy(context_frames(B, sizes.frame)).to(dev)
 
+    def run(frames):
+        _, preds = predict(frames)
+        out = codec.decode_latents(preds.reshape(-1, preds.shape[-1]))
+        # int64, as 256 clips' sum passes 2^31
+        return out, torch.stack([
+            out.sum(dtype=torch.int64),
+            torch.isfinite(preds).all().to(torch.int64)])
+
+    program = J.jit(run, name=path["name"])
+
     def request() -> Reply:
         with torch.inference_mode():
-            _, preds = predict(frames)
-            out = codec.decode_latents(preds.reshape(-1, preds.shape[-1]))
-            # one fetch is the sync; int64, as 256 clips' sum passes 2^31
-            total, finite = torch.stack([
-                out.sum(dtype=torch.int64),
-                torch.isfinite(preds).all().to(torch.int64)]).tolist()
+            out, stats = program(frames)
+            total, finite = stats.tolist()      # one fetch is the sync
         return Reply(out, total, bool(finite))
 
     return Workload(
         unit="frames/sec/chip", precision="int8" if path["int8"] else "bf16",
         batch=B, items=B * path["pred"], request=request,
         expected=H.expected_launches(models, path, 1), flash_body="wgmma",
-        probe=request, keep=dict(models=models, frames=frames, path=path))
+        probe=request, program=program,
+        keep=dict(models=models, frames=frames, path=path))
 
 
 def scenario_pixel(sizes: Sizes = FULL, device="cuda") -> Workload:
@@ -418,13 +433,21 @@ def time_requests(name: str, wl: Workload, device, repeats: int) -> dict:
     """Warm-up and ``repeats`` timed requests (one launch window, checked):
     the rate's median, quartiles and spread, the checksum and the
     launches."""
-    walls, replies = [], []
+    walls, replies, replay_ms = [], [], []
+    n_compiles = len(J.COMPILES)
     with H.launch_window() as window:
         for _ in range(1 + repeats):
             wall, reply = _timed(wl, device)
             walls.append(wall)
             replies.append(reply)
+            if wl.program is not None:
+                replay_ms.append(wl.program.replay_ms())
     window.check(name, _expected(wl, device, 1 + repeats), wl.flash_body)
+    compiles = [dict(shapes=c["shapes"], warmup_s=c["warmup_s"],
+                     capture_s=c["capture_s"])
+                for c in J.COMPILES[n_compiles:]]
+    if compiles:
+        emit({"scenario": name, "compiles": compiles})
     if not all(r.finite for r in replies):
         raise AssertionError(f"{name}: non-finite outputs")
     sums = [r.checksum for r in replies]
@@ -442,6 +465,10 @@ def time_requests(name: str, wl: Workload, device, repeats: int) -> dict:
         tries=len(rates), precision=wl.precision, batch=wl.batch,
         items_per_request=wl.items, wall_s_median=statistics.median(walls),
         walls_s=walls, checksum=sums[0],
+        compiled=wl.program is not None and wl.program.n_graphs > 0,
+        compile_s=sum(c["warmup_s"] + c["capture_s"] for c in compiles),
+        replay_ms=(statistics.median(replay_ms[1:])
+                   if replay_ms and replay_ms[-1] is not None else None),
         launches_per_request={k: {b: n / requests for b, n in v.items()}
                               for k, v in _bodies(window).items()},
         launches_implied=wl.expected,
@@ -615,6 +642,9 @@ def main(argv=None, sizes: Sizes = FULL) -> int:
                              "else all ten")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cpu: run on the host (no device metrics)")
+    parser.add_argument("--eager", action="store_true",
+                        help="run the serving requests eagerly, not as "
+                             "compiled programs (utils/jit.disable_jit)")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("bench: torch.cuda.is_available() is false; this benchmark "
@@ -646,7 +676,9 @@ def main(argv=None, sizes: Sizes = FULL) -> int:
             emit({"build": _kernels.BUILD["path"],
                   "nvcc_s": _kernels.BUILD["seconds"],
                   "build_and_load_s": time.perf_counter() - t0})
-        failed = run(names, sizes, args.device, REPEATS, budget_s, results)
+        with J.disable_jit() if args.eager else contextlib.nullcontext():
+            failed = run(names, sizes, args.device, REPEATS, budget_s,
+                         results)
     finally:
         timer.cancel()
     if not results:

@@ -18,9 +18,13 @@ Noise: the JAX package draws from ``fold_in(PRNGKey(start_step), step)``,
 which torch cannot reproduce. Here ``noise_fn(step, shape)`` gives the NHWC
 noise of a rollout step; the default draws it from a ``torch.Generator`` on
 the device seeded from (start_step, step). Tests pass JAX's exact noise.
-A data-parallel caller wraps it in ``windowed_noise``: each process draws
-the whole global batch's noise and keeps its rows, so the run refines every
-clip with the noise a single process would give it.
+The noise is a function of (step, shape) alone, so the refiner takes each
+draw once and keeps it on the device (``draw_once``): a compiled request
+(``utils/jit.py``) reads it as a constant buffer, drawn outside the graph
+in the warm-up, and every later request, compiled or eager, gets the same
+tensor. A data-parallel caller wraps the noise in ``windowed_noise``: each
+process draws the whole global batch's noise once and keeps its rows, so
+the run refines every clip with the noise a single process would give it.
 """
 
 from __future__ import annotations
@@ -43,13 +47,27 @@ def resize_nearest(frames_u8: torch.Tensor, size: int) -> torch.Tensor:
     return x.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
 
 
+def draw_once(noise_fn: Callable, device) -> Callable:
+    """``noise_fn``'s draw for each (step, shape), taken at the first ask
+    and kept on ``device``."""
+    kept = {}
+
+    def draw(step: int, shape) -> torch.Tensor:
+        key = (int(step), tuple(shape))
+        if key not in kept:
+            kept[key] = noise_fn(step, shape).to(device)
+        return kept[key]
+    draw.draws_once = True
+    return draw
+
+
 def default_noise(start_step: int, device) -> Callable:
     def draw(step: int, shape) -> torch.Tensor:
         g = torch.Generator(device=device)
         # 16 bits each: the CPU generator keeps only a 32-bit seed
         g.manual_seed((start_step << 16) | int(step))
         return torch.randn(shape, generator=g, device=device)
-    return draw
+    return draw_once(draw, device)
 
 
 class BatchWindow:
@@ -65,13 +83,15 @@ class BatchWindow:
 
 def windowed_noise(noise_fn: Callable, window: BatchWindow) -> Callable:
     """``noise_fn``'s draw for the whole global batch, cut to the rows of
-    ``window``."""
+    ``window`` (a view). ``noise_fn`` should draw once (``default_noise``
+    does): the window moves from batch to batch, the whole draw does not."""
     def draw(step: int, shape) -> torch.Tensor:
         if shape[0] != window.hi - window.lo:
             raise ValueError(f"noise for {shape[0]} rows, but the window "
                              f"holds [{window.lo}, {window.hi})")
         whole = noise_fn(step, (window.n,) + tuple(shape[1:]))
         return whole[window.lo:window.hi]
+    draw.draws_once = True
     return draw
 
 
@@ -84,11 +104,15 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
     """Build the refine hook for ``ar_rollout``:
     ``refine(flat_latents (B, latent_dim), step) -> (B, latent_dim)``.
 
-    The empty-prompt embedding is computed once, here.
+    The empty-prompt embedding is computed once, here. ``noise_fn(step,
+    shape)`` must depend on (step, shape) alone: each draw is taken once
+    (``draw_once``) unless it already is.
     """
     vae_lo = VAECodec(frame_size, pipe.vae)
     uncond = pipe.uncond_embeddings(1)
     noise_fn = noise_fn or default_noise(start_step, pipe.device)
+    if not getattr(noise_fn, "draws_once", False):
+        noise_fn = draw_once(noise_fn, pipe.device)
 
     if hi_res is None:
         # the VAE owns its compression factor: the grid is its latent_hw

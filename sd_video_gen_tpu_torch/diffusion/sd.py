@@ -10,6 +10,15 @@ scale of 0 given as a Python number runs only the uncond half. Every loop is
 a Python loop over host-side scheduler constants; nothing is cached but the
 LMS schedules (scipy quadratures).
 
+Compiled programs (``utils/jit.py``), the counterpart of the JAX pipeline's
+``_jit_cache``: the CLIP forward, the LMS and full-range DPM-Solver++ loops
+of ``denoise_img_latents``, the DDIM partial denoise of ``gen_i2i_latents``
+(``img_to_img``'s), and the pixel encode and decode around them, each one
+CUDA graph per (sampler, steps, start step, guidance, shape) on the card.
+Random draws happen before the program and enter it as inputs, as the JAX
+``run(unet_params, latents, ...)`` takes them. ``i2i_scan`` is a plain
+function: the refiner calls it inside the predictor's program.
+
 Latents here are (B, 4, h, w), the UNet's logical shape, where the JAX
 package's are NHWC; they may arrive in any strides (the UNet makes its input
 channels-last itself). Random draws come from a ``torch.Generator`` on the
@@ -19,6 +28,8 @@ pipeline's device (seed 0 when none is given) or are passed in as tensors.
 from __future__ import annotations
 
 import functools
+import os
+import warnings
 
 import torch
 
@@ -30,6 +41,7 @@ from sd_video_gen_tpu_torch.models.clip_text import (CLIPTextEncoder,
                                                      empty_prompt_ids)
 from sd_video_gen_tpu_torch.models.unet import UNet2DCondition
 from sd_video_gen_tpu_torch.models.vae import AutoencoderKL
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 # ~4 S scipy quadratures a schedule: built once per step count
 _lms_schedule = functools.lru_cache(maxsize=8)(LMSSchedule)
@@ -46,6 +58,50 @@ class SDPipeline:
         self.vae, self.unet, self.clip = vae, unet, clip
         self.tokenizer_dir = tokenizer_dir
         self._tokenizer = None
+        self._clip_apply = jit(self._clip_forward, name="clip_apply")
+        self._lms = jit(self._lms_loop, name="sd_lms")
+        self._dpm_full = jit(self._dpm_full_loop, name="sd_dpmpp")
+        self._i2i = jit(self._i2i_loop, name="sd_ddim")
+        self._encode = jit(self._encode_pixels, name="sd_encode")
+        self._decode = jit(self._decode_latents, name="sd_decode")
+
+    @classmethod
+    def from_pretrained_dir(cls, path: str, device=None,
+                            dtype=torch.float32, vae_cfg=None, unet_cfg=None,
+                            clip_cfg=None) -> "SDPipeline":
+        """The pipeline from a diffusers model directory:
+        ``<path>/{vae,unet}/diffusion_pytorch_model.(safetensors|bin)``,
+        ``<path>/text_encoder/(model.safetensors|pytorch_model.bin)``,
+        ``<path>/tokenizer/``. A missing component keeps seeded random
+        weights (seeds 0, 1, 2, as ``predict.sd_modules``), with a warning.
+        The configurations default to SD-v1.4's."""
+        from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
+        from sd_video_gen_tpu_torch.models.clip_text import CLIPTextConfig
+        from sd_video_gen_tpu_torch.models.unet import UNetConfig
+        from sd_video_gen_tpu_torch.models.vae import VAEConfig
+
+        def find(sub, names):
+            for n in names:
+                f = os.path.join(path, sub, n)
+                if os.path.exists(f):
+                    return f
+            warnings.warn(f"SDPipeline.from_pretrained_dir: no {sub} weights "
+                          f"under {path}: seeded random init")
+            return None
+
+        model_files = ("diffusion_pytorch_model.safetensors",
+                       "diffusion_pytorch_model.bin")
+        tok = os.path.join(path, "tokenizer")
+        return cls(
+            build_from_file(AutoencoderKL, vae_cfg or VAEConfig(), "vae",
+                            find("vae", model_files), device, dtype, seed=0),
+            build_from_file(UNet2DCondition, unet_cfg or UNetConfig(), "unet",
+                            find("unet", model_files), device, dtype, seed=1),
+            build_from_file(CLIPTextEncoder, clip_cfg or CLIPTextConfig(),
+                            "clip", find("text_encoder", (
+                                "model.safetensors", "pytorch_model.bin")),
+                            device, dtype, seed=2),
+            tokenizer_dir=tok if os.path.isdir(tok) else None)
 
     @property
     def device(self) -> torch.device:
@@ -77,11 +133,14 @@ class SDPipeline:
                               truncation=True, return_tensors="np")
         return torch.from_numpy(out["input_ids"]).long().to(self.device)
 
+    def _clip_forward(self, ids):
+        return self.clip(ids)
+
     @torch.inference_mode()
     def encode_text(self, prompts: list[str]) -> torch.Tensor:
         """[uncond; cond] embeddings, (2B, 77, hidden)."""
-        cond = self.clip(self.tokenize(prompts))
-        uncond = self.clip(empty_prompt_ids(
+        cond = self._clip_apply(self.tokenize(prompts))
+        uncond = self._clip_apply(empty_prompt_ids(
             len(prompts), self.clip.cfg.max_length, self.device))
         return torch.cat([uncond, cond], dim=0)
 
@@ -89,7 +148,7 @@ class SDPipeline:
     def uncond_embeddings(self, batch: int = 1) -> torch.Tensor:
         """encode_text(['']) as [uncond; cond], (2B, 77, hidden) f32."""
         ids = empty_prompt_ids(batch, self.clip.cfg.max_length, self.device)
-        e = self.clip(ids)
+        e = self._clip_apply(ids)
         return torch.cat([e, e], dim=0)
 
     # -- latent loops -------------------------------------------------------
@@ -131,10 +190,17 @@ class SDPipeline:
         if latents is None:
             latents = self._randn((B, self.unet.cfg.in_channels, height // 8,
                                    width // 8), generator)
-        if sampler == "dpmpp":
-            dpm = DPMSolverPPSchedule(num_inference_steps, 999.0)
-            return self._dpm_solve(dpm, latents, text_embeddings,
-                                   guidance_scale)
+        loop = self._dpm_full if sampler == "dpmpp" else self._lms
+        return loop(latents, text_embeddings, num_inference_steps,
+                    guidance_scale)
+
+    def _dpm_full_loop(self, latents, text_embeddings,
+                       num_inference_steps: int, guidance_scale):
+        dpm = DPMSolverPPSchedule(num_inference_steps, 999.0)
+        return self._dpm_solve(dpm, latents, text_embeddings, guidance_scale)
+
+    def _lms_loop(self, latents, text_embeddings, num_inference_steps: int,
+                  guidance_scale):
         sched = _lms_schedule(num_inference_steps)
         x = latents * sched.init_noise_scale()
         hist = sched.init_history(x)
@@ -217,11 +283,19 @@ class SDPipeline:
         if latents is None:
             latents = self._randn((B, self.unet.cfg.in_channels, height // 8,
                                    width // 8), generator)
+        if start_step <= 0:
+            noise = None
+        elif noise is None:
+            noise = self._randn(tuple(latents.shape), generator)
+        return self._i2i(latents, noise, text_embeddings, num_inference_steps,
+                         guidance_scale, start_step, return_all_latents)
+
+    def _i2i_loop(self, latents, noise, text_embeddings,
+                  num_inference_steps: int, guidance_scale, start_step: int,
+                  return_all_latents: bool):
         sched = DDIMSchedule(num_inference_steps)
         x = latents
         if start_step > 0:
-            if noise is None:
-                noise = self._randn(tuple(x.shape), generator)
             x = sched.add_noise_at(x, noise.to(x.dtype), start_step)
         if not return_all_latents:
             return self._ddim_tail(x, text_embeddings, guidance_scale, sched,
@@ -260,8 +334,10 @@ class SDPipeline:
     def encode_img(self, imgs_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, 4, H/8, W/8) scaled latents (posterior
         mean)."""
-        x = torch.as_tensor(imgs_u8).to(self.device).float()
-        x = x / 255.0 * 2.0 - 1.0
+        return self._encode(torch.as_tensor(imgs_u8).to(self.device))
+
+    def _encode_pixels(self, imgs_u8):
+        x = imgs_u8.float() / 255.0 * 2.0 - 1.0
         mean, _ = self.vae.encode(x.permute(0, 3, 1, 2))
         return mean.float() * SD_LATENT_SCALE
 
@@ -269,6 +345,9 @@ class SDPipeline:
     def _decode_pixels(self, latents) -> torch.Tensor:
         """(B, 4, h, w) scaled latents of any spatial size -> (B, 8h, 8w, 3)
         uint8 pixels (the VAE is fully convolutional)."""
+        return self._decode(latents)
+
+    def _decode_latents(self, latents):
         x = self.vae.decode(latents / SD_LATENT_SCALE)
         x = torch.clamp(x.float() / 2.0 + 0.5, 0.0, 1.0)
         x = torch.round(x * 255.0).to(torch.uint8)

@@ -6,6 +6,11 @@
           -> round -> uint8 NHWC
   encode_batch: encode, then prepend the SOS token.
 
+The posterior mean by default, as in the JAX package; a ``generator`` (or
+explicit ``noise``) draws a posterior sample instead (``sample_latent``, the
+reference's ``latent_dists.sample()``). ``from_checkpoint`` builds the codec
+from a diffusers VAE file.
+
 Frames and latents keep the JAX package's layouts. The model works on
 (B, C, H, W) in ``torch.channels_last`` memory, which is the frames' own NHWC:
 the permutes to and from frames are views, and only the latents' channel-major
@@ -17,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from sd_video_gen_tpu_torch.codecs import SD_LATENT_SCALE, add_sos
-from sd_video_gen_tpu_torch.models.vae import AutoencoderKL
+from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, sample_latent
 
 
 class VAECodec:
@@ -30,16 +35,33 @@ class VAECodec:
         self.latent_channels = cfg.latent_channels
         self.latent_dim = cfg.latent_channels * self.latent_hw ** 2
 
+    @classmethod
+    def from_checkpoint(cls, frame_size: int, path: str, device=None,
+                        dtype=torch.float32, cfg=None) -> "VAECodec":
+        """The codec of the VAE in the weight file at ``path`` (diffusers
+        keys, ``.safetensors`` / ``.pt`` / ``.bin``), SD-v1.4's widths unless
+        ``cfg`` says otherwise, on ``device`` (the card unless the CPU is
+        asked for) in ``dtype``."""
+        from sd_video_gen_tpu_torch.diffusion.weights import build_from_file
+        from sd_video_gen_tpu_torch.models.vae import VAEConfig
+        return cls(frame_size, build_from_file(
+            AutoencoderKL, cfg or VAEConfig(), "vae", path, device, dtype))
+
     @property
     def device(self) -> torch.device:
         return self.model.quant_conv.weight.device
 
-    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, 3) uint8 BGR -> (B, T, latent_dim) f32."""
+    def encode_frames(self, frames: torch.Tensor, generator=None,
+                      noise=None) -> torch.Tensor:
+        """(B, T, H, W, 3) uint8 BGR -> (B, T, latent_dim) f32: the posterior
+        mean, or a posterior sample with ``generator`` (a ``torch.Generator``
+        on the codec's device) or ``noise`` ((B * T, 4, h, w))."""
         B, T, H, W, _ = frames.shape
         x = frames.to(self.device).float() / 255.0 * 2.0 - 1.0
         x = x.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)   # channels-last
-        mean, _ = self.model.encode(x)
+        mean, logvar = self.model.encode(x)
+        if generator is not None or noise is not None:
+            mean = sample_latent(mean, logvar, generator, noise)
         z = mean.float() * SD_LATENT_SCALE          # (N, 4, h, w)
         return z.reshape(B, T, self.latent_dim)
 
@@ -52,9 +74,10 @@ class VAECodec:
         x = torch.round(x * 255.0).to(torch.uint8)
         return x.permute(0, 2, 3, 1).contiguous()   # no copy: x is NHWC
 
-    def encode_batch(self, frames: torch.Tensor,
-                     use_sos: bool = True) -> torch.Tensor:
+    def encode_batch(self, frames: torch.Tensor, use_sos: bool = True,
+                     generator=None, noise=None) -> torch.Tensor:
         """(B, T, H, W, 3) uint8 -> (B, T + 1, latent_dim): SOS, then frames
-        (no SOS and T tokens with ``use_sos=False``)."""
-        lat = self.encode_frames(frames)
+        (no SOS and T tokens with ``use_sos=False``); ``generator`` and
+        ``noise`` as in ``encode_frames``."""
+        lat = self.encode_frames(frames, generator, noise)
         return add_sos(lat) if use_sos else lat

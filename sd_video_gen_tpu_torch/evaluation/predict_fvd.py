@@ -177,10 +177,13 @@ def main(argv=None):
     # the latent and scores another baseline)
     naive_mode = "ar" if (args.naive and args.train_mode == "diff") \
         else args.train_mode
+    # eager: the FVD CLI's compiled programs (the JAX CLI's jitted predict
+    # and decode) come with the training step's (ROADMAP)
     predict = make_predict_fn(model, codec, args.pred_frames,
                               window=cfg.frames_per_clip, mode=naive_mode,
                               refiner=refiner,
-                              future_horizon=cfg.frames_to_predict)
+                              future_horizon=cfg.frames_to_predict,
+                              compiled=False)
     embedder = build_embedder(args, device)
 
     def features(videos_u8):

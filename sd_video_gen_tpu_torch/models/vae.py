@@ -252,3 +252,22 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         z = z.to(self.dtype).contiguous(memory_format=torch.channels_last)
         return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x, generator=None, sample: bool = False, noise=None):
+        """(decode(z), mean, logvar): z is the posterior mean, or with
+        ``sample`` a draw from the posterior (``sample_latent``)."""
+        mean, logvar = self.encode(x)
+        z = (sample_latent(mean, logvar, generator, noise) if sample
+             else mean)
+        return self.decode(z), mean, logvar
+
+
+def sample_latent(mean, logvar, generator=None, noise=None):
+    """Reparameterised draw from the diagonal gaussian posterior (the
+    reference's ``latent_dists.sample()``): ``mean + exp(logvar / 2) *
+    noise``, the noise ``noise`` (mean's shape) or a standard normal draw
+    from ``generator`` (torch's default generator when None)."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean)

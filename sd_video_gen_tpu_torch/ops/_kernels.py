@@ -11,7 +11,10 @@ test suite imports every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper calls
 ``count_launch`` where it launches its kernel and nowhere else, so a run can
-show which kernels its main path went through.
+show which kernels its main path went through. ``CALLS`` counts dispatcher
+calls by kernel name, kernel or plain version (``record``). A CUDA graph
+replay runs no wrapper: ``utils/jit.py`` keeps the counts a capture saw
+(``counters``) with its graph and adds them once per replay.
 
 ``force_reference`` sends every dispatcher of this package (``attention``,
 ``group_norm``) to its plain version at once: the on-card comparison of a
@@ -40,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 LAUNCHES: collections.Counter = collections.Counter()
+CALLS: collections.Counter = collections.Counter()
 BUILD = {"seconds": 0.0, "path": None}   # nvcc time (0 if already built)
 
 _LIB = None
@@ -51,6 +55,14 @@ _RECORDERS: list = []
 def count_launch(name: str) -> None:
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+def counters() -> list:
+    """Every launch counter of the package: ``LAUNCHES``, ``CALLS`` and both
+    dispatchers' launches by body."""
+    from sd_video_gen_tpu_torch.ops import attention, groupnorm
+    return [LAUNCHES, CALLS, attention.ROUTE_LAUNCHES,
+            groupnorm.ROUTE_LAUNCHES]
 
 
 class force_reference:
@@ -85,8 +97,15 @@ class record_calls:
         return False
 
 
+def recording() -> bool:
+    """True inside ``record_calls``."""
+    return bool(_RECORDERS)
+
+
 def record(name: str, signature: tuple) -> None:
     """Called by each dispatcher for every call its kernel could take."""
+    with _LOCK:
+        CALLS[name] += 1
     for calls in _RECORDERS:
         calls[(name, signature)] += 1
 

@@ -15,6 +15,14 @@ context tokens) stays plain, as in the JAX package. The TPU-measured dispatch
 table of the JAX package is not carried over: its numbers say nothing about
 this card.
 
+Under a CUDA graph capture (``utils/jit.py``) the launcher runs as it does
+eagerly: it builds the TMA tensor maps of the capture's pointers on the host
+and passes them by value, so the graph holds them. That is right because a
+graph's inputs (static buffers) and intermediates (its pool) keep their
+addresses at every replay; ``route`` reads the same pointers' alignment, so
+a replay takes the eager body; and ``cuTensorMapEncodeTiled`` is looked up
+once, in the warm-up before the capture.
+
 Tensor parallelism (``head_sharded_attention`` and ``_ring_attention`` of
 the JAX package): heads are the model axis's unit. A split UNet attention
 layer already holds its rank's heads (its ``to_q/k/v`` are column-parallel),

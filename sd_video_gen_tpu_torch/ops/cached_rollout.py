@@ -20,10 +20,13 @@ grows only the decoder sequence.
 
 Pure functions over ``quantized.param_tree(model)`` (or the int8 tree of
 ``quantize_rollout_params``), not over the module's forward.
+``jit_cached_rollout`` is the rollout as one compiled program per shape
+(``utils/jit.py``), the JAX package's ``jit_cached_rollout``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,8 +37,17 @@ from sd_video_gen_tpu_torch.models.positional import sinusoidal_positions
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
 from sd_video_gen_tpu_torch.ops.quantized import (param_tree, qdense,
                                                   quantize_frame_transformer)
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 _LN_EPS = 1e-5  # torch nn.Transformer default, as in models/transformer.py
+
+
+@functools.lru_cache(maxsize=8)
+def positions(max_len: int, dim: int, device, dtype) -> torch.Tensor:
+    """The sinusoidal table on ``device`` in ``dtype``, built once per
+    argument set: a rollout reads it and copies nothing from the host (a
+    pageable copy cannot be captured)."""
+    return sinusoidal_positions(max_len, dim).to(device=device, dtype=dtype)
 
 
 def _dense(p, x, dtype):
@@ -145,7 +157,7 @@ def cached_rollout(cfg, params, context: torch.Tensor, pred_frames: int,
         raise AssertionError(f"rollout length {Tmax} exceeds positional "
                              f"table max_len={cfg.max_len}")
     dev = context.device
-    pos = sinusoidal_positions(cfg.max_len, D).to(device=dev, dtype=dtype)
+    pos = positions(cfg.max_len, D, dev, dtype)
 
     def embed(x, t_start):
         e = _dense(p["embedding"], x, dtype) * scale
@@ -197,6 +209,15 @@ def cached_rollout(cfg, params, context: torch.Tensor, pred_frames: int,
             latent = refine_fn(latent[:, 0], i)[:, None]
         preds.append(latent[:, 0])
     return torch.stack(preds, dim=1)
+
+
+def jit_cached_rollout(cfg, pred_frames: int):
+    """``cached_rollout`` with a static frame count, compiled: ``f(params,
+    context)``, one graph per context shape and ``params`` object (the
+    graph reads its weights where they lie)."""
+    return jit(lambda params, context: cached_rollout(cfg, params, context,
+                                                      pred_frames),
+               name="cached_rollout")
 
 
 def quantize_rollout_params(model) -> dict:

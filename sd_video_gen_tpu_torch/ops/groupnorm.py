@@ -27,6 +27,11 @@ Any other strides raise: a silent layout copy is the traffic the NHWC body
 exists to remove. ``groupnorm_silu_reference`` is the plain version both are
 held against; its output keeps the input's memory format.
 
+Under a CUDA graph capture (``utils/jit.py``) the launch is the eager one:
+its workspace comes from the graph's pool, ``nhwc_plan`` answers from the
+cache its warm-up filled, and the cluster launch (``cudaLaunchKernelEx``)
+and the streaming mode's two launches become kernel nodes of the graph.
+
 Dispatch (``group_norm``): CPU tensors take the plain version, CUDA tensors
 always take the kernel, and ``force='reference'`` or
 ``_kernels.force_reference`` send a call to the plain version. Any other

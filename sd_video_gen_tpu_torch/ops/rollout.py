@@ -7,7 +7,9 @@
           scan buffer.
 
 The refine hook (partial denoise) receives the rollout step index, so each
-frame draws fresh noise.
+frame draws fresh noise. ``jit_rollout`` is the rollout as one compiled
+program per context shape (``utils/jit.py``), the JAX package's
+``jit_rollout``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Optional
 import torch
 
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 
 def _predict_next(model, seq, refine_fn, model_kwargs, step: int):
@@ -52,3 +55,14 @@ def ar_rollout(model: Callable, context: torch.Tensor, pred_frames: int,
         buf = torch.cat([buf[:, 1:], nxt[:, None]], dim=1)
         preds.append(nxt)
     return torch.stack(preds, dim=1)
+
+
+def jit_rollout(apply_fn: Callable, pred_frames: int, window: int = 5,
+                refine_fn: Optional[Callable] = None):
+    """``ar_rollout`` with a static frame count, compiled: ``f(context)``.
+    ``apply_fn`` is the model, which holds its weights (the JAX program
+    takes them as its first argument); the graph reads them where they
+    lie."""
+    return jit(lambda context: ar_rollout(apply_fn, context, pred_frames,
+                                          window=window, refine_fn=refine_fn),
+               name="ar_rollout")

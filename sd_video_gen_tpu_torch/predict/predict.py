@@ -16,6 +16,16 @@ are arguments:
 An ``IdentityModel`` in place of the transformer is the copy-last-frame
 baseline.
 
+On the card the request (encode, rollout, refiner) runs as one compiled
+program per input shape (``utils/jit.py``; the JAX package's
+``predict_impl``), and the CLI's decode as another (``decode_impl``). The
+request's host-to-device copy stays outside the program: the frames are
+copied to the card, then into the program's input. A run laid out over
+more than one process (``--mesh`` with a model axis, or several data
+ranks) stays eager: the sharded refiner's collectives run over gloo on one
+card, and a data rank's noise rows move with the batch. That is decided
+once, when the predictor is built (``compiled``).
+
 The CLI (``main``, every flag of the JAX package's plus ``--device``):
 
   python -m sd_video_gen_tpu_torch.predict.predict --dataset ball \
@@ -73,15 +83,21 @@ from sd_video_gen_tpu_torch.ops.quantized import (quantize_frame_transformer,
 from sd_video_gen_tpu_torch.ops.rollout import ar_rollout
 from sd_video_gen_tpu_torch.parallel import multihost
 from sd_video_gen_tpu_torch.parallel.mesh import make_layout
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 
 def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
                     window: int, mode: str = "ar",
                     refiner: Optional[Callable] = None,
                     rollout: str = "full", int8: bool = False,
-                    future_horizon: Optional[int] = None):
+                    future_horizon: Optional[int] = None,
+                    compiled: bool = True):
     """``predict(frames_u8, text_embeds=None) -> (context_latents (B, T, L),
     preds (B, P, L))``.
+
+    With ``compiled`` the request after its host-to-device copy is one
+    ``jit`` program (``predict.impl``): a CUDA graph per frames shape on the
+    card, the function as it is on the CPU.
 
     ``codec`` is a ``PixelCodec`` or ``VAECodec``; ``refiner`` the hook from
     ``diffusion/refine.make_denoise_refiner``. ``mode='text'`` takes text
@@ -122,11 +138,8 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
             return torch.cat([out[:, :-1],
                               (out[:, -1] + tgt[:, -1])[:, None]], dim=1)
 
-    @torch.inference_mode()
-    def predict(frames_u8, text_embeds=None):
-        frames = (frames_u8 if isinstance(frames_u8, torch.Tensor) else
-                  torch.from_numpy(np.array(frames_u8, np.uint8)))
-        latents = codec.encode_batch(frames.to(codec.device), use_sos=True)
+    def predict_impl(frames, text_embeds):
+        latents = codec.encode_batch(frames, use_sos=True)
         kwargs = {"text_embeds": text_embeds} if text_embeds is not None \
             else {}
         if mode in ("future", "learned_tgt"):
@@ -148,7 +161,26 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
                                refine_fn=refiner, model_kwargs=kwargs)
         return latents[:, 1:], preds
 
+    impl = jit(predict_impl, name="predict_impl") if compiled else \
+        predict_impl
+
+    @torch.inference_mode()
+    def predict(frames_u8, text_embeds=None):
+        frames = (frames_u8 if isinstance(frames_u8, torch.Tensor) else
+                  torch.from_numpy(np.array(frames_u8, np.uint8)))
+        # the host-to-device copy, outside the compiled program
+        return impl(frames.to(codec.device), text_embeds)
+
+    predict.impl = impl
     return predict
+
+
+def make_decode_fn(codec, compiled: bool = True):
+    """``codec.decode_latents`` as one compiled program per shape (the JAX
+    CLI's ``decode_impl``: an eager VAE decode launches hundreds of kernels
+    a batch), or as it is."""
+    return (jit(codec.decode_latents, name="decode_impl") if compiled
+            else codec.decode_latents)
 
 
 def load_model_params(cfg, args, model: torch.nn.Module,
@@ -382,16 +414,20 @@ def main(argv=None):
     # the diff residual add (see evaluation/predict_fvd.py)
     naive_mode = "ar" if (args.naive and args.train_mode == "diff") \
         else args.train_mode
+    # one process: compiled; a layout over several stays eager (docstring)
+    compiled = layout.data * layout.model == 1
     predict = make_predict_fn(model, codec, args.pred_frames,
                               window=cfg.frames_per_clip, mode=naive_mode,
                               refiner=refine_fn, rollout=args.rollout,
                               int8=args.int8 and not args.naive,
-                              future_horizon=cfg.frames_to_predict)
+                              future_horizon=cfg.frames_to_predict,
+                              compiled=compiled)
+    decode = make_decode_fn(codec, compiled)
     embedder = build_embedder(args, device)
 
     if args.serve:
         from sd_video_gen_tpu_torch.predict.serve import serve
-        serve(args.serve, predict, codec.decode_latents,
+        serve(args.serve, predict, decode,
               batch_clips=args.batch_clips,
               frames_per_clip=cfg.frames_per_clip,
               frame_size=cfg.frame_size, embedder=embedder)
@@ -434,8 +470,7 @@ def main(argv=None):
             is_pred = ([False] * (context.shape[1] - 1)
                        + [True] * preds.shape[1])
             T_out = seq.shape[1]
-            imgs = codec.decode_latents(seq.reshape(-1, seq.shape[-1])) \
-                .cpu().numpy()
+            imgs = decode(seq.reshape(-1, seq.shape[-1])).cpu().numpy()
         if gathers:
             # every data rank's rows, in order, from model rank 0 of each
             parts = multihost.gather_to_coordinator(

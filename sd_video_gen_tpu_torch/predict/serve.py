@@ -1,7 +1,10 @@
 """Persistent serving loop (``serve`` of ``sd_video_gen_tpu/predict/serve.py``).
 
 Warms up on one batch of the serving shape, prints ``SERVE_READY {json}``,
-then answers length-prefixed requests on a Unix socket until ``shutdown``:
+then answers length-prefixed requests on a Unix socket until ``shutdown``.
+The warm-up is where a compiled predictor and decoder (``utils/jit.py``)
+capture the serving shape's programs, so the compile is paid before
+``SERVE_READY``, as the JAX server pays its trace and compile there:
 
   {"op": "ping"}      -> {"ok": true, "served": n}
   {"op": "shutdown"}  -> {"ok": true, "served": n}, the loop returns
@@ -114,10 +117,12 @@ def serve(sock_path: str, predict, decode, *, batch_clips: int,
 
     ``predict(frames_u8 (B, T, H, W, 3), text_embeds) -> (context (B, T, L),
     preds (B, P, L))`` and ``decode(latents (N, L)) -> (N, H, W, 3) uint8``
-    are the built entry points (``make_predict_fn``, a codec's
-    ``decode_latents``). ``embedder`` (text mode) maps a request's ``labels``
-    to the text embeddings; a request without labels gets class 0.
-    ``warmup`` runs one batch of the serving shape before the socket opens.
+    are the built entry points (``make_predict_fn``, ``make_decode_fn`` or a
+    codec's ``decode_latents``). ``embedder`` (text mode) maps a request's
+    ``labels`` to the text embeddings; a request without labels gets class
+    0. ``warmup`` runs one batch of the serving shape before the socket
+    opens (compiling it); a ragged batch is padded to that shape, so every
+    request replays the warm-up's programs.
     """
     shape = (batch_clips, frames_per_clip, frame_size, frame_size, 3)
 

@@ -175,17 +175,9 @@ def assert_finite(name, x):
     return x
 
 
-def checked_refine(refine):
-    """The refiner, failing on a non-finite latent in or out."""
-    def run(flat, step):
-        assert_finite(f"predicted latent (step {step})", flat)
-        return assert_finite(f"refined latent (step {step})",
-                             refine(flat, step))
-    return run
-
-
 def checked_predict(predict):
-    """The predict entry point, failing on non-finite latents."""
+    """The predict entry point, failing on non-finite latents: checked on
+    its outputs, after the request (a host sync cannot be captured)."""
     def run(frames, text_embeds=None):
         context, preds = predict(frames, text_embeds)
         return assert_finite("context", context), assert_finite("preds",
@@ -221,8 +213,6 @@ def predict_fn(models, path, frame=FRAME, hi_res=None, pred=None,
             r["start_step"], DDIM_STEPS,
             r["hi_res"] and (hi_res or r["hi_res"]), noise_fn,
             sampler=r["sampler"], solver_steps=r["solver_steps"])
-        if checked:
-            refine = checked_refine(refine)
     predict = make_predict_fn(
         models[path["model"]], codec, pred or path["pred"], window=CONTEXT,
         mode=path["mode"], refiner=refine, rollout=path["rollout"],
@@ -305,18 +295,20 @@ def expected_launches(models, path, batches: int) -> dict:
 
 class launch_window:
     """Counts of the main path: every count set to 0 on entry, read on exit
-    (``launches``, and launches by body of each kernel)."""
+    (``launches``, launches by body of each kernel, and ``calls``: the
+    dispatchers' calls, kernel or plain version). A compiled request's
+    replay adds what its capture counted (``utils/jit.py``)."""
 
     def __enter__(self):
-        _kernels.LAUNCHES.clear()
-        ROUTE_LAUNCHES.clear()
-        gn.ROUTE_LAUNCHES.clear()
+        for counter in _kernels.counters():
+            counter.clear()
         return self
 
     def __exit__(self, *exc):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         self.launches = {k: _kernels.LAUNCHES.get(k, 0) for k in KERNELS}
+        self.calls = {k: n for k, n in _kernels.CALLS.items() if n}
         self.bodies = dict(ROUTE_LAUNCHES)
         self.gn_bodies = dict(gn.ROUTE_LAUNCHES)
         return False

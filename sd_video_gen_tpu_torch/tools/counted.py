@@ -5,10 +5,11 @@ process that has to account for what its children launched.
 
 imports ``<module>`` (e.g. ``sd_video_gen_tpu_torch.predict.predict``) and
 calls its ``main(argv)`` inside one launch window
-(``tools/bench_harness.launch_window``: ``_kernels.LAUNCHES`` and both
-dispatchers' launches by body, set to 0 on entry and read on exit) and a
-``_kernels.record_calls`` (every dispatcher call, kernel or plain version).
-Nothing else changes: the CLI computes what it computes without the runner.
+(``tools/bench_harness.launch_window``: ``_kernels.LAUNCHES``,
+``_kernels.CALLS`` (every dispatcher call, kernel or plain version) and
+both dispatchers' launches by body, set to 0 on entry and read on exit).
+Nothing else changes: the CLI computes what it computes without the runner,
+its compiled programs included (a replay adds the counts its capture saw).
 When ``main`` returns, one line
 
     COUNTED {"launches": {kernel: n}, "bodies": {kernel: {body: n}},
@@ -21,12 +22,10 @@ int, else 0; a CLI that raises prints its traceback and exits 1, with no
 
 from __future__ import annotations
 
-import collections
 import importlib
 import json
 import sys
 
-from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.tools.bench_harness import launch_window
 
 PREFIX = "COUNTED "
@@ -35,15 +34,12 @@ PREFIX = "COUNTED "
 def run(module: str, argv: list) -> tuple:
     """``module.main(argv)``'s return value and its counts."""
     main = importlib.import_module(module).main
-    with launch_window() as window, _kernels.record_calls() as rec:
+    with launch_window() as window:
         ret = main(argv)
-    calls = collections.Counter()
-    for (name, _), n in rec.calls.items():
-        calls[name] += n
     return ret, {"launches": window.launches,
                  "bodies": {"flash_attention": window.bodies,
                             "groupnorm_silu": window.gn_bodies},
-                 "calls": dict(calls)}
+                 "calls": window.calls}
 
 
 def command(module: str, counted: bool) -> list:

@@ -51,7 +51,8 @@ RECORD_KEYS = {
     "walls_s", "checksum", "launches_per_request", "launches_implied",
     "launches_in_run", "flops_per_request", "flops_analytic", "mfu",
     "mfu_peak_flops", "mfu_peak_of", "wrapper_host_us", "card", "device",
-    "flop_count_s", "seconds", *B.DEVICE_FIELDS}
+    "flop_count_s", "seconds", "compiled", "compile_s", "replay_ms",
+    *B.DEVICE_FIELDS}
 
 
 @pytest.fixture(scope="module")
@@ -183,6 +184,9 @@ def test_records_and_the_aggregate_after_every_scenario(capsys):
         assert rec["flops_per_request"] > 0
         # nothing here is a device number
         assert rec["device"] == "cpu" and rec["card"] is None
+        # the CPU runs the request as it is: no graph, no replay
+        assert (rec["compiled"], rec["compile_s"], rec["replay_ms"]) == (
+            False, 0, None)
         assert rec["mfu"] is None and rec["wrapper_host_us"] is None
         assert all(rec[k] is None for k in B.DEVICE_FIELDS)
         # the CPU takes the plain versions: no launch, whatever the path

@@ -318,6 +318,7 @@ def test_port_imports_no_jax_flax_optax_yaml_cv2():
             "sd_video_gen_tpu_torch.data.pipeline",
             "sd_video_gen_tpu_torch.data.latent_cache",
             "sd_video_gen_tpu_torch.utils.profiling",
+            "sd_video_gen_tpu_torch.utils.jit",
             "sd_video_gen_tpu_torch.utils.preprocess",
             "sd_video_gen_tpu_torch.utils.video",
             "sd_video_gen_tpu_torch.utils.format_data",
