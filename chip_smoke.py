@@ -83,9 +83,22 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               mode, its graph dumped (``CUDAGraph.debug_dump``) and its K1
               (``flash_fwd_wgmma``) and K2 (``gn_nhwc_cluster``, or
               ``gn_nhwc_stats`` + ``gn_nhwc_apply``) kernel nodes counted:
-              they must equal the launches a request counts
+              they must equal the launches a request counts; then the
+              training side: each of the three training paths of phase 8
+              (a Trainer of its own, freed after), 3 compiled steps
+              (``step_impl``: one CUDA graph, the parameters and Adam's
+              moments updated in place inside it, dropout on from a
+              generator registered with the capture) against 3 steps under
+              ``disable_jit`` from the same state, on three batches:
+              loss components, parameters and both moments bit for bit,
+              each step's launches by body equal eager's; ``eval_impl``
+              compiled against eager; ``train_ref_artifact``'s step graph
+              captured in debug mode and dumped, its K1
+              (``flash_fwd_tf32x3``) and K2 kernel nodes equal to a replay's
+              counted launches
   8. train    three training paths through the port's ``Trainer`` (names and
-              sizes are the JAX bench's), each 2 warm-up optimizer steps, 8
+              sizes are the JAX bench's; every step after the first a
+              replay of its compiled step), each 2 warm-up optimizer steps, 8
               timed ones (one synchronise at the end) and one more for the
               last loss, on one fixed seeded batch with dropout on:
               ``train_flagship`` (batch 6, 5 + 5 frames of 128px, PixelCodec,
@@ -122,8 +135,13 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               clips over the cached rollout, refined at 512px from DDIM step
               40, ``--timing``): finite FVD and MSE, the warm rates, exact
               launch counts by body (their shapes join phase 3's dry run);
-              ``Trainer.fvd_validation`` on ``train_flagship``'s Trainer,
-              both protocols; I3D on the card against the CPU
+              the FVD CLI runs compiled (its predictor, decode and I3D) and
+              once more under ``disable_jit``: FVD, MSE and every batch's
+              I3D statistics bit for bit; ``Trainer.fvd_validation`` on
+              ``train_flagship``'s Trainer, both protocols, each batch one
+              compiled program (``fvd_batch``) against the same eagerly,
+              statistics bit for bit and the FVD identical; I3D on the card
+              against the CPU
  10. data     the training input at scale: a seeded Moving-MNIST-layout
               ``.npy`` at 128px becomes train and test frame caches through
               ``data/native_loader.main`` (the cache CLI; the ``.bin`` bytes
@@ -141,8 +159,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               val; the
               encode's kernel shapes are held against the plain versions in
               f32 first); the same run again with ``--multihost
-              --num_processes 1`` (one NCCL group): losses and the saved
-              state bit-equal to the first run's, one gradient all-reduce a
+              --num_processes 1`` (one NCCL group, so the step stays eager):
+              losses and the saved state bit-equal to the first run's,
+              which compiled its step and eval, one gradient all-reduce a
               step; and a few ``--train_mode text`` steps from a labelled
               cache of a seeded 101-class dataset, whose embedder must get
               the cache header's class of every served clip
@@ -154,18 +173,20 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               card, host-staged)``: no NCCL speed), each held against the
               same entry point in this process: ``predict.main --mesh
               data=1,model=4 --denoise`` on phase 9's files (1 predicted
-              frame; 4 clips, whose 512px VAE mid block splits its batch
-              over the ranks, and 3 clips, which take the ring), predicted
-              latents and frames; ``predict_fvd.main --mesh data=4``
-              (``fvd_native_ar4``), FVD, MSE and the real clips'
-              statistics; ``train/trainer.main --mesh data=2,model=2``
-              from phase 10's frame cache at the flagship's widths, f32, 3
-              steps, dropout 0 (losses and the gathered checkpoint against
-              one process) and 0.1 (replicated parameters bit-equal on
-              every rank). Launches per rank exact (the ring's calls run
-              no kernel), every per-rank kernel signature held against the
-              plain version in bf16, the dtype of every rank path that
-              reaches a kernel, on the body the paths take (f32 and the
+              frame refined from DDIM step 48; 4 clips, whose 512px VAE mid
+              block splits its batch over the ranks, and 3 clips, which
+              take the ring), predicted latents and frames;
+              ``predict_fvd.main --mesh data=4`` (``fvd_native_ar4``, one
+              batch of 8 clips), FVD, MSE and the real clips' statistics;
+              ``train/trainer.main --mesh data=2,model=2`` from phase 10's
+              frame cache at the flagship's widths, f32, 2 steps at dropout
+              0 (losses and the gathered checkpoint against
+              one process) and 1 step at 0.1 (replicated parameters
+              bit-equal on every rank). Launches per rank exact (the ring's
+              calls run no kernel), every per-rank kernel signature held
+              against the plain version in bf16 (not timed), the dtype of
+              every rank path that reaches a kernel, on the body the paths
+              take (f32 and the
               GroupNorm NCHW body, which no rank path takes, are checked at
               every full-width shape in phase 3), the bodies those of
               phase 9
@@ -417,6 +438,9 @@ JIT_DUMP_STREAMS = 8
 # The flash rows of the f32 training step's dry run (phase 8), for the
 # kernels line.
 TRAIN_F32_ROWS: list = []
+# Phase jit: each training path's step compiled against eager, this many
+# steps from one state, a batch of other frames each, dropout on.
+JIT_TRAIN_STEPS = 3
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -628,7 +652,7 @@ def tensor_core_rounding() -> float:
     return ((got.abs() < exact.abs()) & off).sum().item() / off.sum().item()
 
 
-def check_attention(sig, dtype) -> dict:
+def check_attention(sig, dtype, timing=True) -> dict:
     shape, _, scale = sig
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -636,6 +660,10 @@ def check_attention(sig, dtype) -> dict:
     out = flash_attention(q, k, v, scale)
     ref = reference_attention(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref).abs().max().item()
+    body = route(dtype, shape[2], (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    atol = TF32X3_ATOL if body == "tf32x3" else ATTN_ATOL[dtype]
+    if not timing:
+        return dict(max_abs_err=err, ok=err <= atol, route=body)
     if dtype == torch.float32:
         tc_err = (tensor_core_split_attention(q, k, v, scale) - ref
                   ).abs().max().item()
@@ -655,13 +683,11 @@ def check_attention(sig, dtype) -> dict:
     flops_ms = (ops / BF16_FLOPS if dtype == torch.bfloat16
                 else 3 * ops / TF32_FLOPS) * 1e3
     bytes_ms = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
-    body = route(dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
     extra = {}
     if dtype == torch.float32:
         extra = dict(cuda_core_ms=ops / F32_FLOPS * 1e3, tc_err=tc_err,
                      fma_ms=cuda_ms(lambda: fma_body(q, k, v, scale),
                                     max(3, min(20, int(25 / ms)))))
-    atol = TF32X3_ATOL if body == "tf32x3" else ATTN_ATOL[dtype]
     return dict(max_abs_err=err, ok=err <= atol, ms=ms,
                 plain_ms=plain_ms, route=body,
                 tflops=ops / ms / 1e9, library_ms=sdpa_ms,
@@ -670,7 +696,7 @@ def check_attention(sig, dtype) -> dict:
                 **extra)
 
 
-def check_groupnorm(sig, dtype, body) -> dict:
+def check_groupnorm(sig, dtype, body, timing=True) -> dict:
     """One GroupNorm signature on ``body``: ``"nhwc"`` makes the tensor
     channels-last, ``"nchw"`` contiguous; ``route`` must agree."""
     shape, _, groups, eps, silu, _ = sig
@@ -695,6 +721,8 @@ def check_groupnorm(sig, dtype, body) -> dict:
     ok = bool((diff <= rtol * ref.abs() + atol).all())
     err = diff.max().item()
     del out, ref, diff
+    if not timing:
+        return dict(max_abs_err=err, ok=ok, route=body)
     ms, plain_ms = timed(
         lambda: groupnorm_silu_reference(x, w, b, groups, eps, silu),
         lambda: groupnorm_silu(x, w, b, groups, eps, silu))
@@ -724,12 +752,12 @@ def log_wrapper_host_cost():
             f"of host time per call, {1 / host:.0f} calls/s")
 
 
-def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True
-                     ) -> list:
+def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True,
+                     timing: bool = True) -> list:
     """Each kernel at each signature of ``sigs`` in each of ``dtypes``
-    against its plain version, timed; fails on any disagreement.
-    ``nchw=False`` leaves out the GroupNorm NCHW body, which no path
-    takes."""
+    against its plain version, timed (unless ``timing`` is False); fails on
+    any disagreement. ``nchw=False`` leaves out the GroupNorm NCHW body,
+    which no path takes."""
     rows, failures = [], []
     for (name, sig), calls in sigs.items():
         if name == "groupnorm_silu" and sig[5] != "nhwc":
@@ -746,13 +774,22 @@ def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True
                                                                 "nchw")
         for dtype in dtypes:
             for body in bodies:
-                res = (check_attention(sig, dtype) if body is None else
-                       check_groupnorm(sig, dtype, body))
+                res = (check_attention(sig, dtype, timing) if body is None
+                       else check_groupnorm(sig, dtype, body, timing))
                 row = dict(kernel=name, shape=list(sig[0]),
                            args=[str(a) for a in sig[2:5]],
                            dtype=str(dtype).split(".")[-1], calls=calls,
                            on_path=body != "nchw", **res)
                 rows.append(row)
+                if not row["ok"]:
+                    failures.append(row)
+                if not timing:
+                    log(f"kernel: {what}{name} {tuple(sig[0])} {row['args']} "
+                        f"{row['dtype']} x{calls}: err "
+                        f"{row['max_abs_err']:.2e} "
+                        f"{'ok' if row['ok'] else 'FAIL'}, route "
+                        f"{row['route']} (not timed)")
+                    continue
                 extra = (f", {row['tflops']:.1f} TFLOP/s" + (
                     f"; FMA body {row['fma_ms']:.4f} ms (this body "
                     f"{row['fma_ms'] / row['ms']:.2f}x faster), CUDA-core "
@@ -772,8 +809,6 @@ def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True
                     f"library (yardstick, not a port) "
                     f"{row['library_ms']:.4f} ms, route {row['route']}"
                     f"{extra}")
-                if not row["ok"]:
-                    failures.append(row)
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -1297,6 +1332,142 @@ def jit_graph_dump(models, workdir) -> dict:
     return window.launches
 
 
+def _state_copy(trainer) -> dict:
+    sd = trainer.state.state_dict()
+    return {"step": sd["step"], **{tree: {k: v.clone()
+                                          for k, v in sd[tree].items()}
+                                   for tree in ("params", "mu", "nu")}}
+
+
+def _same_trees(trainer, copy_) -> bool:
+    sd = trainer.state.state_dict()
+    return sd["step"] == copy_["step"] and all(
+        torch.equal(v, copy_[tree][k]) for tree in ("params", "mu", "nu")
+        for k, v in sd[tree].items())
+
+
+def _train_steps(trainer, batches) -> list:
+    """One ``Trainer.train_loop`` step a batch, each in a launch window:
+    (loss components, window, wall s, CUDA-event ms) of each."""
+    out = []
+    for b in batches:
+        with launch_window() as window:
+            m, wall, ms = timed_request(lambda: trainer.train_loop([b]))
+        out.append(({k: v for k, v in m.items() if k.endswith("_train")},
+                    window, wall, ms))
+    return out
+
+
+def jit_train_path(path, workdir, per_step) -> dict:
+    """A training path's step compiled (``step_impl``: its first call
+    compiles, then every call replays) against the same steps under
+    ``disable_jit`` from the same state: loss components, parameters and
+    both moments bit for bit after JIT_TRAIN_STEPS steps with dropout on,
+    one graph, each step's launches by body equal eager's and
+    ``per_step``; ``eval_impl`` on the first batch, compiled against eager.
+    ``train_ref_artifact``'s step is captured in debug mode, its graph
+    dumped and its K1 (``flash_fwd_tf32x3``) and K2 kernel nodes counted
+    against a replay's launches."""
+    name, cfg = path["name"], path["cfg"]
+    trainer = make_trainer(path, workdir)
+    start = _state_copy(trainer)
+    batches = [([0] * cfg.batch_size, train_frames(path, seed=s))
+               for s in range(JIT_TRAIN_STEPS)]
+    dump = name == "train_ref_artifact"
+    # compiled first: cuDNN keeps, for each convolution shape, the
+    # algorithm it last ran, and a capture may take another than an eager
+    # call before it did; eager calls after the capture run the captured one
+    J.BACKEND.debug = dump
+    try:
+        compiled = _train_steps(trainer, batches)
+    finally:
+        J.BACKEND.debug = False
+    program = trainer._step_fn.impl
+    after = _state_copy(trainer)
+    trainer.state.load_state_dict(start)
+    with J.disable_jit():
+        eager = _train_steps(trainer, batches)
+    same = _same_trees(trainer, after)
+    del after
+    frames = torch.from_numpy(batches[0][1]).cuda()
+    with launch_window() as ev_c:
+        ev = trainer._eval_fn(frames)
+    with J.disable_jit(), launch_window() as ev_e:
+        ev_eager = trainer._eval_fn(frames)
+    body = "tf32x3"
+    for i, (c, e) in enumerate(zip(compiled, eager)):
+        got, want = ((w.launches, w.bodies, w.gn_bodies) for w in (c[1], e[1]))
+        if got != want:
+            raise AssertionError(f"jit: {name} step {i + 1}: launches "
+                                 f"compiled {got}, eager {want}")
+        c[1].check(f"{name} step {i + 1} (compiled)", per_step, body)
+    ev_same = all(torch.equal(ev[k], ev_eager[k]) for k in ev_eager)
+    if (ev_c.launches, ev_c.bodies, ev_c.gn_bodies) != (
+            ev_e.launches, ev_e.bodies, ev_e.gn_bodies):
+        raise AssertionError(f"jit: {name} eval_impl: launches compiled "
+                             f"{ev_c.launches}, eager {ev_e.launches}")
+    ev_c.check(f"{name} eval_impl (compiled)", per_step, body)
+    comps_same = [c[0] for c in compiled] == [e[0] for e in eager]
+    if not (same and comps_same and ev_same and program.n_graphs == 1
+            and trainer.state.step == JIT_TRAIN_STEPS):
+        raise AssertionError(
+            f"jit: {name}: compiled against eager: state equal {same}, loss "
+            f"components equal {comps_same} ({[c[0] for c in compiled]} / "
+            f"{[e[0] for e in eager]}), eval equal {ev_same}, graphs "
+            f"{program.n_graphs}, steps {trainer.state.step}")
+    nodes = None
+    if dump:
+        dot = os.path.join(workdir, "train_step.dot")
+        (graph,) = program.graphs()
+        graph.debug_dump(dot)
+        nodes = graph_kernel_nodes(dot)
+        os.unlink(dot)
+        want = compiled[-1][1].launches            # a replay's
+        k2 = nodes["gn_nhwc_cluster"] + nodes["gn_nhwc_stats"]
+        log(f"jit: {name} step graph (debug_dump): {nodes['all']} nodes; K1 "
+            f"flash_fwd_tf32x3 {nodes['flash_fwd_tf32x3']}, wgmma "
+            f"{nodes['flash_fwd_wgmma']}; K2 gn_nhwc_cluster "
+            f"{nodes['gn_nhwc_cluster']}, gn_nhwc_stats "
+            f"{nodes['gn_nhwc_stats']}, gn_nhwc_apply "
+            f"{nodes['gn_nhwc_apply']}; a replay's counted launches {want}")
+        if (nodes["flash_fwd_tf32x3"] != want["flash_attention"]
+                or nodes["flash_fwd_wgmma"] or k2 != want["groupnorm_silu"]
+                or nodes["gn_nhwc_apply"] != nodes["gn_nhwc_stats"]
+                or not want["flash_attention"]):
+            raise AssertionError(f"jit: {name}: the step graph's kernel "
+                                 f"nodes {dict(nodes)} are not the counted "
+                                 f"launches {want}")
+    rec = next(c for c in reversed(J.COMPILES) if c["name"] == "step_impl")
+    replays = compiled[1:]
+    res = dict(
+        compile_s=rec["warmup_s"] + rec["capture_s"],
+        compiled_wall_ms=float(np.mean([c[2] for c in replays])) * 1e3,
+        device_ms=float(np.mean([c[3] for c in replays])),
+        eager_wall_ms=float(np.mean([e[2] for e in eager[1:]])) * 1e3,
+        eager_span_ms=float(np.mean([e[3] for e in eager[1:]])),
+        replay_ms=program.replay_ms(),
+        launches={k: sum(c[1].launches[k] for c in compiled)
+                  + ev_c.launches[k] for k in KERNELS})
+    res["compiled_idle"] = 1 - res["device_ms"] / res["compiled_wall_ms"]
+    res["eager_idle"] = 1 - res["device_ms"] / res["eager_wall_ms"]
+    for c in compiled:
+        counted(c[1])
+    counted(ev_c)
+    log(f"jit: {name}: {JIT_TRAIN_STEPS} compiled steps == {JIT_TRAIN_STEPS} "
+        f"eager steps bit for bit (dropout_p {cfg.dropout_p}: loss "
+        f"components, parameters, both moments), one graph; eval_impl "
+        f"compiled == eager; launches a step {compiled[-1][1].launches} by "
+        f"body {compiled[-1][1].bodies} {compiled[-1][1].gn_bodies}, eager's "
+        f"the same; a replayed step: wall {res['compiled_wall_ms']:.2f} ms, "
+        f"device {res['device_ms']:.2f} ms (CUDA events; replay "
+        f"{res['replay_ms']:.2f} ms), idle {res['compiled_idle']:.1%}; "
+        f"eager step: wall {res['eager_wall_ms']:.2f} ms (events span "
+        f"{res['eager_span_ms']:.2f} ms), idle {res['eager_idle']:.1%} "
+        f"against the compiled device ms; compile (warm-up, undone, + "
+        f"capture) {res['compile_s']:.2f} s")
+    return res
+
+
 def phase_jit(models, sd, workdir) -> dict:
     """Every phase-4 serving path and phase-5 SD path compiled against eager
     (``check_compiled``), then the graph dump of the B=8 DDIM refiner;
@@ -1308,17 +1479,40 @@ def phase_jit(models, sd, workdir) -> dict:
     SERVED.clear()
     for path in SD_PATHS:
         rows[path["name"]] = jit_sd_path(models, path, sd)
-    for res in rows.values():
-        for k in KERNELS:
-            total[k] += res["launches"][k]
     torch.cuda.empty_cache()
     for k, n in jit_graph_dump(models, workdir).items():
         total[k] += n
+    for res in rows.values():
+        for k in KERNELS:
+            total[k] += res["launches"][k]
     log("jit: table " + json.dumps({n: {k: v for k, v in r.items()
                                         if k != "launches"}
                                     for n, r in rows.items()}))
     log(f"jit: {len(rows)} paths compiled == eager; launches {total}; "
         f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase_jit_train(models, workdir) -> dict:
+    """The jit phase's training side: each training path's step and eval
+    compiled against eager (``jit_train_path``), one Trainer at a time;
+    returns the compiled steps' and evals' launches."""
+    t0 = time.perf_counter()
+    enc = {k: v[0] for k, v in passes_per_model(models).items()}
+    total, rows = dict.fromkeys(KERNELS, 0), {}
+    for path in TRAIN_PATHS:
+        rows[path["name"]] = jit_train_path(
+            path, workdir, {k: n * (path["codec"] == "vae")
+                            for k, n in enc.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in KERNELS:
+            total[k] += rows[path["name"]]["launches"][k]
+    log("jit: train table " + json.dumps({n: {k: v for k, v in r.items()
+                                              if k != "launches"}
+                                          for n, r in rows.items()}))
+    log(f"jit: {len(rows)} training paths compiled == eager; launches "
+        f"{total}; {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -1653,14 +1847,81 @@ def eval_signatures(files) -> dict:
     return by_path
 
 
+@contextlib.contextmanager
+def fvd_stats_spy():
+    """Every ``FeatureStats`` the FVD CLI's ``make_sharded_features`` returns
+    while open, as (n, sum, sum of outer products) on the host in f64."""
+    seen, real = [], predict_fvd.make_sharded_features
+
+    def make(features, layout):
+        fn = real(features, layout)
+
+        def run(v):
+            st = fn(v)
+            seen.append((st.n, st.raw_sum, st.raw_prod))
+            return st
+        return run
+    predict_fvd.make_sharded_features = make
+    try:
+        yield seen
+    finally:
+        predict_fvd.make_sharded_features = real
+
+
+def check_fvd_cli_eager(files, path, out, stats, window, timing,
+                        compiles) -> None:
+    """The FVD CLI's run again under ``disable_jit``: the same FVD and MSE,
+    every batch's I3D statistics (real and generated) bit for bit, the same
+    launches by body as the compiled run's (its predictor, decode and I3D
+    were compiled programs); the warm batch's walls and CUDA-event spans of
+    both runs (``--timing``), the compiles' seconds."""
+    t0 = time.perf_counter()
+    with J.disable_jit(), fvd_stats_spy() as eager_stats, \
+            launch_window() as eager_w:
+        eager_out, eager_lines = run_cli(path, eval_argv(files, path))
+    warm_c, warm_e = timing["batches"][1], json.loads(eager_lines[-1])[
+        "batches"][1]
+    wall = lambda w: (w["gen_s"] + w["i3d_s"]) * 1e3
+    span = warm_c["gen_span_ms"] + warm_c["i3d_span_ms"]
+    log(f"jit: {path['name']} warm batch ({warm_c['clips']} clips): compiled "
+        f"wall {wall(warm_c):.1f} ms (rollout and decode "
+        f"{warm_c['gen_s'] * 1e3:.1f}, I3D {warm_c['i3d_s'] * 1e3:.1f}), "
+        f"event span {span:.1f} ms (rollout and decode "
+        f"{warm_c['gen_span_ms']:.1f}, I3D {warm_c['i3d_span_ms']:.1f}), idle "
+        f"{1 - span / wall(warm_c):.1%}; eager wall {wall(warm_e):.1f} ms "
+        f"(rollout and decode {warm_e['gen_s'] * 1e3:.1f}, I3D "
+        f"{warm_e['i3d_s'] * 1e3:.1f}), event span "
+        f"{warm_e['gen_span_ms'] + warm_e['i3d_span_ms']:.1f} ms, idle "
+        f"{1 - span / wall(warm_e):.1%} against the compiled span; compiles "
+        f"{sum(c['warmup_s'] + c['capture_s'] for c in compiles):.2f} s "
+        f"({sorted({c['name'] for c in compiles})}); launches a batch "
+        f"{ {k: n // len(timing['batches']) for k, n in window.launches.items()} }")
+    same = len(stats) == len(eager_stats) and all(
+        np.array_equal(np.asarray(a, np.float64), np.asarray(b, np.float64))
+        for sa, sb in zip(stats, eager_stats) for a, b in zip(sa, sb))
+    counts = [(w.launches, w.bodies, w.gn_bodies) for w in (window, eager_w)]
+    log(f"jit: {path['name']} (predict_fvd.main) compiled against eager: FVD "
+        f"{out[0]!r} / {eager_out[0]!r}, MSE {out[1]!r} / {eager_out[1]!r}; "
+        f"{len(stats)} I3D statistics (real and generated clips of each "
+        f"batch) {'equal bit for bit' if same else 'DIFFER'}; launches "
+        f"{counts[0][0]} compiled, {counts[1][0]} eager; the eager run "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (same and out == eager_out and counts[0] == counts[1]):
+        raise AssertionError(f"jit: {path['name']}: compiled differs from "
+                             f"eager")
+
+
 def run_eval_path(models, files, path) -> dict:
     """One evaluation path at full width: finite results, exact launches by
-    body, its rates from its own ``--timing`` line."""
+    body, its rates from its own ``--timing`` line; the FVD CLI's compiled
+    run against the same eagerly (``check_fvd_cli_eager``)."""
     name, batches = path["name"], EVAL_CLIPS // path["batch_clips"]
     t0 = time.perf_counter()
-    with launch_window() as window:               # the main path
+    n_compiles = len(J.COMPILES)
+    with fvd_stats_spy() as stats, launch_window() as window:  # main path
         out, lines = run_cli(path, eval_argv(files, path))
     wall = time.perf_counter() - t0
+    log_compiles(name, J.COMPILES[n_compiles:])
     for line in lines[:-1]:
         log(f"{name}: | {line}")
     timing = json.loads(lines[-1])
@@ -1693,28 +1954,64 @@ def run_eval_path(models, files, path) -> dict:
             f"after the first batch: {warm:.3f}; the call {wall:.1f} s "
             f"(building and loading included)")
     window.check(name, expected_launches(models, path, batches))
+    if name == "fvd_native_ar4":
+        if not stats or not any(c["name"] == "features"
+                                for c in J.COMPILES[n_compiles:]):
+            raise AssertionError(f"{name}: I3D did not run compiled")
+        check_fvd_cli_eager(files, path, out, stats, window, timing,
+                            J.COMPILES[n_compiles:])
     return counted(window)
 
 
 def check_trainer_fvd(path, trainer, i3d):
     """``Trainer.fvd_validation`` of a training path, both protocols, over
-    two seeded batches: finite FVD, wall time."""
+    two seeded batches: finite FVD, wall time; each batch's program
+    (``fvd_batch``, compiled) against the same eagerly: every batch's I3D
+    statistics bit for bit, the FVD identical."""
     loader = [([0] * path["cfg"].batch_size, train_frames(path, seed=s))
               for s in (5, 6)]
-    for protocol in ("last_k", "reference"):
-        torch.cuda.synchronize()
-        with launch_window() as window:
-            t0 = time.perf_counter()
-            fvd = trainer.fvd_validation(loader, i3d, max_batches=2,
-                                         protocol=protocol)
-            ms = (time.perf_counter() - t0) * 1e3
-        log(f"{path['name']}_fvd: fvd_validation protocol {protocol}, 2 "
-            f"batches of {path['cfg'].batch_size} clips x "
-            f"{path['clip_frames']} frames of {path['cfg'].frame_size}px: FVD "
-            f"{fvd:.6f}, {ms:.1f} ms")
-        if not np.isfinite(fvd):
-            raise AssertionError(f"fvd_validation {protocol}: FVD {fvd}")
-        window.check(f"{path['name']}_fvd", {k: 0 for k in KERNELS})
+    program = trainer._fvd_batch
+    seen = []
+
+    def spy(*args):
+        out = program(*args)
+        seen.append([t.cpu() for side in out for t in side[1:]])
+        return out
+    trainer._fvd_batch = spy
+    try:
+        for protocol in ("last_k", "reference"):
+            runs = []
+            for eager in (False, True):
+                seen.clear()
+                torch.cuda.synchronize()
+                with (J.disable_jit() if eager else contextlib.nullcontext()
+                      ), launch_window() as window:
+                    t0 = time.perf_counter()
+                    fvd = trainer.fvd_validation(loader, i3d, max_batches=2,
+                                                 protocol=protocol)
+                    ms = (time.perf_counter() - t0) * 1e3
+                runs.append((fvd, list(seen), ms))
+                window.check(f"{path['name']}_fvd"
+                             + (" (eager)" if eager else ""),
+                             {k: 0 for k in KERNELS})
+            (fvd, feats, ms), (fvd_e, feats_e, ms_e) = runs
+            same = len(feats) == 2 and all(
+                torch.equal(a, b) for fa, fb in zip(feats, feats_e)
+                for a, b in zip(fa, fb))
+            log(f"{path['name']}_fvd: fvd_validation protocol {protocol}, 2 "
+                f"batches of {path['cfg'].batch_size} clips x "
+                f"{path['clip_frames']} frames of {path['cfg'].frame_size}px"
+                f": FVD {fvd:.6f}, {ms:.1f} ms compiled (fvd_batch, "
+                f"{program.n_graphs} graph(s)); eager {fvd_e:.6f}, "
+                f"{ms_e:.1f} ms; the I3D statistics of both batches "
+                f"{'equal bit for bit' if same else 'DIFFER'}")
+            if not np.isfinite(fvd):
+                raise AssertionError(f"fvd_validation {protocol}: FVD {fvd}")
+            if not (same and fvd == fvd_e):
+                raise AssertionError(f"jit: fvd_validation {protocol}: "
+                                     f"compiled differs from eager")
+    finally:
+        trainer._fvd_batch = program
 
 
 def check_i3d(i3d_path):
@@ -1910,13 +2207,14 @@ def timed_train_loops():
 def run_native_path(files, name, extra=()) -> tuple:
     """``train/trainer.main`` from the native cache; returns (the epoch's
     metrics, the launch window, train steps, batches served, the checkpoint's
-    path)."""
+    path, the names of the programs it compiled)."""
     argv = ["--dataset", "mnist", "--config", DATA_CONFIG, "--config_dir",
             files["dir"], "--native_cache", files["cache"], "--codec", "vae",
             "--precision", "bf16_full", "--checkpoint_dir",
             files["checkpoints"], "--debug", "True", *extra]
     native_loader.NEXT_BATCH.clear()
     multihost.COLLECTIVES.clear()
+    n_compiles = len(J.COMPILES)
     before = set(os.listdir(files["checkpoints"])) \
         if os.path.isdir(files["checkpoints"]) else set()
     with timed_train_loops() as walls, launch_window() as window, \
@@ -1944,7 +2242,8 @@ def run_native_path(files, name, extra=()) -> tuple:
         f"{m['val_loss']:.6f}; checkpoint {ckpt}; collectives "
         f"{dict(multihost.COLLECTIVES)}")
     return m, window, steps, waited["batches"], \
-        os.path.join(files["checkpoints"], ckpt)
+        os.path.join(files["checkpoints"], ckpt), \
+        sorted(c["name"] for c in J.COMPILES[n_compiles:])
 
 
 def _same_state(path_a, path_b) -> bool:
@@ -2042,7 +2341,8 @@ def phase_data(workdir) -> dict:
         f"expected launches {expected} = ({train_b} train + {val_b} val "
         f"batches) x {enc} an encode")
     name = "train_native_ucf_vae"
-    plain, window, steps, batches, ckpt_a = run_native_path(files, name)
+    plain, window, steps, batches, ckpt_a, programs = run_native_path(
+        files, name)
     window.check(name, expected, flash_body="tf32x3")
     if (steps, batches) != (train_b, train_b + val_b):
         raise AssertionError(f"{name}: {steps} steps, {batches} batches")
@@ -2051,7 +2351,7 @@ def phase_data(workdir) -> dict:
         port = s.getsockname()[1]
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host, no network
     try:
-        group, window2, _, _, ckpt_b = run_native_path(
+        group, window2, _, _, ckpt_b, group_programs = run_native_path(
             files, name + "_multihost",
             ("--multihost", "--num_processes", "1", "--process_id", "0",
              "--coordinator", f"127.0.0.1:{port}"))
@@ -2064,13 +2364,17 @@ def phase_data(workdir) -> dict:
     losses = lambda m: {k: v for k, v in m.items() if k.endswith(("_train",
                                                                   "_val"))}
     same = losses(plain) == losses(group) and _same_state(ckpt_a, ckpt_b)
-    log(f"{name}_multihost: {backend} group of 1: losses, parameters and "
-        f"moments {'equal bit for bit' if same else 'DIFFER'} to the plain "
-        f"run's; gradient all-reduces {reduced.get('grads', 0)} for {steps} "
-        f"steps")
-    if not same or backend != "nccl" or reduced.get("grads") != steps:
+    log(f"{name}_multihost: {backend} group of 1, eager (a process group's "
+        f"step is not captured): losses, parameters and moments "
+        f"{'equal bit for bit' if same else 'DIFFER'} to the plain run's, "
+        f"compiled ({programs}); gradient all-reduces "
+        f"{reduced.get('grads', 0)} for {steps} steps")
+    if not same or backend != "nccl" or reduced.get("grads") != steps \
+            or set(programs) != {"eval_impl", "step_impl"} \
+            or group_programs:
         raise AssertionError(f"{name}_multihost: same {same}, backend "
-                             f"{backend}, collectives {reduced}")
+                             f"{backend}, collectives {reduced}, compiled "
+                             f"plain {programs}, group {group_programs}")
     run_text_path(files)
     log(f"data: {time.perf_counter() - t0:.1f} s")
     return counted(window)
@@ -2082,12 +2386,18 @@ def phase_data(workdir) -> dict:
 # its collectives of CUDA tensors through host memory, the port's ring
 # exchange does so itself), each held against the same entry point in this
 # process. ``predict`` is ``predict_cli_denoise_ar4`` cut to 1 predicted
-# frame: 8 clips (the VAE mid block's batch of 8 splits over the 4 ranks)
-# and 3 clips (3 does not divide by 4: the 512px mid block takes the ring,
-# 4096 / 4 = 1024 tokens a rank); ``fvd`` is ``fvd_native_ar4`` over the
-# data axis; ``train`` is ``train_flagship``'s model at published widths
-# from the data phase's frame cache, f32, 3 steps, dropout 0 and again 0.1.
+# frame refined from DDIM step 48 (2 UNet calls instead of 10): 4 clips
+# (the VAE mid block's batch of 4 splits over the 4 ranks) and 3 clips (3
+# does not divide by 4: the 512px mid block takes the ring, 4096 / 4 = 1024
+# tokens a rank); ``fvd`` is ``fvd_native_ar4`` over the data axis, one
+# batch of 8 clips; ``train`` is ``train_flagship``'s model at published
+# widths from the data phase's frame cache, f32, 2 steps at dropout 0
+# and 1 at 0.1.
 TP_WORLD, TP_BACKEND = 4, "backend gloo (one card, host-staged)"
+TP_PREDICT_PATH = dict(EVAL_PATHS[1], pred=1, refine=dict(
+    EVAL_PATHS[1]["refine"], start_step=48))
+# one FVD batch; 2 train steps at dropout 0, 1 at dropout 0.1
+TP_FVD_CLIPS, TP_EPOCH_RATIO = 8, {0.0: 0.16, 0.1: 0.08}
 TP_TIMEOUT = 420                           # seconds, a set of four workers
 TP_RUNS = [
     dict(name="tp_predict_denoise_4", entry="predict",
@@ -2128,10 +2438,11 @@ TP_LOSS_RTOL, TP_MOMENT_REL_L2, TP_LAST_MOMENT_REL_L2 = 1e-4, 1e-4, 5e-2
 def tp_argv(run, files, data_dir) -> list:
     """The entry point's command line; the mesh comes on top."""
     if run["entry"] == "predict":
-        path = dict(EVAL_PATHS[1], pred=1)
-        return eval_argv(files, path, clips=run["clips"])
+        return eval_argv(files, TP_PREDICT_PATH, clips=run["clips"]) + [
+            "--denoise_start_step",
+            str(TP_PREDICT_PATH["refine"]["start_step"])]
     if run["entry"] == "fvd":
-        return eval_argv(files, EVAL_PATHS[0])
+        return eval_argv(files, EVAL_PATHS[0], clips=TP_FVD_CLIPS)
     return ["--dataset", "mnist", "--config", run["config"], "--config_dir",
             data_dir, "--native_cache", os.path.join(data_dir, "frame_cache"),
             "--codec", "pixel", "--precision", "f32", "--checkpoint_dir",
@@ -2169,8 +2480,8 @@ def tp_entry(run, argv):
         c.decode_latents = dec
         return c
 
-    def stats(i3d, layout):
-        fn = real[2](i3d, layout)
+    def stats(features, layout):
+        fn = real[2](features, layout)
 
         def run_(v):
             st = fn(v)
@@ -2432,7 +2743,8 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
     t0 = time.perf_counter()
     for name, p in (("tp_flagship", 0.0), ("tp_flagship_dropout", 0.1)):
         write_config(os.path.join(data_dir, name + ".yml"),
-                     dict(DATA_YML, EPOCH_RATIO=[0.25], DROPOUT_P=[p]))
+                     dict(DATA_YML, EPOCH_RATIO=[TP_EPOCH_RATIO[p]],
+                          DROPOUT_P=[p]))
     total = {k: 0 for k in KERNELS}
     sigs = collections.Counter()
     for run in TP_RUNS:
@@ -2463,13 +2775,14 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
         if any(r["backend"] != "gloo" for r in ranks):
             raise AssertionError(f"{run['name']}: not a gloo group")
         if run["entry"] == "predict":
-            expected = expected_launches(models, dict(EVAL_PATHS[1], pred=1),
-                                         1)
+            expected = expected_launches(models, TP_PREDICT_PATH, 1)
             check_tp_predict(run, ranks, one, one32, expected)
         elif run["entry"] == "fvd":
             # each rank runs every pass of the path on its slice
             check_tp_fvd(run, ranks, one,
-                         expected_launches(models, EVAL_PATHS[0], 2))
+                         expected_launches(models, EVAL_PATHS[0],
+                                           TP_FVD_CLIPS // EVAL_PATHS[0][
+                                               "batch_clips"]))
         else:
             check_tp_train(run, ranks, one, DATA_YML["LR"][0])
             # the f32 flagship's whole states (5.3 GB each) leave the disk
@@ -2482,9 +2795,10 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
                 total[k] += res["launches"][k]
     # every rank path that reaches a kernel runs it in bf16 on the NHWC
     # body; f32 and the NCHW body are checked at every full-width shape in
-    # phase 3, and are left out here (the script's time bound)
+    # phase 3, and are left out here, and these rows are not timed (the
+    # script's time bound)
     rows = check_signatures(sigs, (torch.bfloat16,), what="tp per-rank: ",
-                            nchw=False)
+                            nchw=False, timing=False)
     log(f"tp: {len(rows)} kernel rows at the per-rank shapes agree; "
         f"launches of the {TP_WORLD}-rank runs {total}; "
         f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
@@ -2952,6 +3266,10 @@ def main() -> int:
             for k, n in phase_jit(models, sd, workdir).items():
                 launches[k] += n
             del sd
+            gc.collect()
+            torch.cuda.empty_cache()
+            for k, n in phase_jit_train(models, workdir).items():
+                launches[k] += n
             mark("train")
             train_launches, flagship = phase_train(models, workdir)
             eval_launches = phase_eval(models, files, sd_files, flagship)

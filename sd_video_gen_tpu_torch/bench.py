@@ -37,10 +37,12 @@ program (``utils/jit.py``: one CUDA graph, captured in the warm-up, whose
 seconds each scenario prints on a ``compiles`` line before its record;
 ``replay_ms``, the median device time of the timed replays from CUDA events
 around them); ``--eager`` runs every scenario eagerly instead (the
-comparison of the two). A training request, eager, is ``TRAIN_TIMED``
-optimizer steps through ``Trainer.train_loop`` on one fixed batch (its
-frames cross to the card every step, as from a loader), from the state the
-scenario started with.
+comparison of the two). A training request is ``TRAIN_TIMED`` optimizer
+steps through ``Trainer.train_loop`` on one fixed batch (its frames cross
+to the card every step, as from a loader), from the state the scenario
+started with; each step after its host part is one compiled program
+(``step_impl``, captured in the warm-up; ``replay_ms`` is then one step's)
+or, with ``--eager``, the same function eagerly.
 
 Each scenario is built, run once to warm up, timed over ``REPEATS`` requests
 (each closed by ``torch.cuda.synchronize``), and freed before the next. Its
@@ -183,7 +185,7 @@ class Workload:
     expected: dict
     flash_body: str
     probe: Callable
-    program: object = None      # the compiled request (serving), a jit
+    program: object = None      # the compiled request or step, a jit
     probe_per_request: int = 1
     reset: Callable | None = None
     keep: dict = dataclasses.field(default_factory=dict)
@@ -319,6 +321,7 @@ def _training(path: dict, sizes: Sizes, device, batch: int | None = None
         flash_body="tf32x3", probe=lambda: steps(1),
         probe_per_request=H.TRAIN_TIMED,
         reset=lambda: trainer.state.load_state_dict(start),
+        program=trainer._step_fn.impl if trainer.compiled else None,
         keep=dict(trainer=trainer, workdir=workdir, path=path),
         analytic_flops=analytic)
 
@@ -643,8 +646,9 @@ def main(argv=None, sizes: Sizes = FULL) -> int:
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cpu: run on the host (no device metrics)")
     parser.add_argument("--eager", action="store_true",
-                        help="run the serving requests eagerly, not as "
-                             "compiled programs (utils/jit.disable_jit)")
+                        help="run the serving requests and the training "
+                             "steps eagerly, not as compiled programs "
+                             "(utils/jit.disable_jit)")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("bench: torch.cuda.is_available() is false; this benchmark "

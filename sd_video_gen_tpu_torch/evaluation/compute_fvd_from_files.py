@@ -9,8 +9,9 @@ Each directory's ``.png`` / ``.jpg`` files are found recursively, grouped by
 the directory that holds them (a sequence never spans two videos), ordered
 numerically within it (``10.png`` after ``9.png``) and cut into sequences of
 ``--seq_len`` frames, resized to ``--size``; their I3D logits (``--batch``
-sequences at a time) give the batch-lineage Fréchet distance. ``cv2`` is
-imported inside the reader.
+sequences at a time, ``fvd.get_fvd_logits``: one compiled program per
+batch shape on the card, the JAX tool's jitted ``features``) give the
+batch-lineage Fréchet distance. ``cv2`` is imported inside the reader.
 """
 
 from __future__ import annotations

@@ -23,10 +23,13 @@ copy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 
 # -- preprocessing ----------------------------------------------------------
@@ -52,13 +55,26 @@ def preprocess_videos(videos_u8: torch.Tensor, target: int = 224
 
 # -- I3D feature extraction -------------------------------------------------
 
+@functools.lru_cache(maxsize=1)
+def jitted_features(i3d):
+    """``i3d(preprocess_videos(v))`` as one compiled program of this module
+    (``utils/jit.py``: a CUDA graph per clip shape on the card), kept for
+    the next calls as the JAX package's ``_jitted_features`` keeps one per
+    flax module. One module's: its graphs hold their memory pool, so
+    another module's first call frees them."""
+    return jit(lambda v: i3d(preprocess_videos(v)), name="features")
+
+
 @torch.no_grad()
 def get_fvd_logits(i3d, videos_u8, batch_size: int = 16) -> torch.Tensor:
     """uint8 videos (B, T, H, W, 3) -> (B, num_classes) I3D logits, in chunks
-    of ``batch_size`` clips, on the I3D's device."""
+    of ``batch_size`` clips, on the I3D's device: each chunk copied there,
+    then ``jitted_features(i3d)`` (a ragged last chunk is a second
+    program)."""
     device = next(i3d.parameters()).device
     videos = torch.as_tensor(videos_u8)
-    outs = [i3d(preprocess_videos(videos[i:i + batch_size].to(device)))
+    features = jitted_features(i3d)
+    outs = [features(videos[i:i + batch_size].to(device))
             for i in range(0, videos.shape[0], batch_size)]
     return torch.cat(outs)
 

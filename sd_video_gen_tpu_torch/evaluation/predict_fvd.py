@@ -20,7 +20,14 @@ pixels, into the generated ones. FVD prints every --fvd_every batches and at
 the end, with the pixel MSE of the predicted frames. I3D runs in full f32
 (``models/i3d.py``). With ``--denoise`` the codec shares the refiner's VAE at
 ``--denoise_precision``. ``--timing`` prints, per batch, the rollout and I3D
-walls with the device synchronised at their ends.
+walls with the device synchronised at their ends (on the card, with the
+spans between CUDA events around each).
+
+In a run of one process the JAX CLI's three jitted programs are compiled
+(``utils/jit.py``: one CUDA graph per batch shape on the card, the ragged
+last batch another): the predictor (``predict_impl``), the decode
+(``decode_impl``) and I3D (``features``, ``fvd.jitted_features``); the
+statistics merge on the host in f64 after each replay.
 
 Across processes (``--multihost``, or torchrun; one per device), laid out
 by ``--mesh`` (``parallel/mesh.py``; the streaming API only, as in the JAX
@@ -30,7 +37,8 @@ group (``make_sharded_features``, the JAX package's shard_map + psum); a
 ragged tail batch is trimmed to a multiple of the data axis. The refiner's
 noise is drawn for the whole batch and cut to the rank's rows, as in the
 predict CLI; the refiner is not split over a model axis (nor is it in the
-JAX CLI). Rank 0 alone prints.
+JAX CLI). Such a run stays eager, as ``predict.main``'s does. Rank 0 alone
+prints.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from sd_video_gen_tpu_torch.config import (build_arg_parser, load_config,
                                            strict_f32)
 from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats, compute_fvd,
                                                    frechet_distance,
+                                                   jitted_features,
                                                    preprocess_videos)
 from sd_video_gen_tpu_torch.models import default_device
 from sd_video_gen_tpu_torch.models.i3d import (I3DConfig, InceptionI3d,
@@ -89,15 +98,16 @@ def load_i3d(weights_path: str | None, device=None) -> InceptionI3d:
     return i3d.eval().requires_grad_(False)
 
 
-def make_sharded_features(i3d, layout):
+def make_sharded_features(features, layout):
     """Data-parallel I3D features: ``fn(videos_u8)`` -> the ``FeatureStats``
     of the whole global batch, from this data rank's slice of it
-    (``videos_u8``, (b, T, H, W, 3) uint8): I3D on the slice, its (n, sum,
-    sum of outer products) in f64 summed over ``layout``'s data group, so
-    every rank holds the global statistics (the JAX package's shard_map +
-    psum over ``data``)."""
+    (``videos_u8``, (b, T, H, W, 3) uint8): ``features`` (the I3D forward
+    on uint8 clips, compiled or not) on the slice, its (n, sum, sum of
+    outer products) in f64 summed over ``layout``'s data group, so every
+    rank holds the global statistics (the JAX package's shard_map + psum
+    over ``data``)."""
     def features_stats(videos_u8):
-        st = FeatureStats(400).append(i3d(preprocess_videos(videos_u8)))
+        st = FeatureStats(400).append(features(videos_u8))
         if layout.data == 1:
             return st
         device = videos_u8.device
@@ -138,6 +148,7 @@ def main(argv=None):
                                                         build_model,
                                                         build_refiner,
                                                         join_run,
+                                                        make_decode_fn,
                                                         make_predict_fn)
     from sd_video_gen_tpu_torch.train.trainer import build_dataset
     parser = build_parser()
@@ -156,6 +167,9 @@ def main(argv=None):
             f"({args.pred_frames}) = {total} < 9, the I3D temporal minimum "
             "— raise --pred_frames or use a config with longer clips")
     layout = join_run(parser, args)
+    # one process: the predictor, the decode and I3D compiled (the JAX
+    # CLI's jitted programs); a mesh stays eager, as in predict.main
+    compiled = layout.data * layout.model == 1
     # the JAX CLI shards only the batch: the refiner stays whole
     layout = dataclasses.replace(layout, model=1, model_rank=0,
                                  model_group=None)
@@ -177,19 +191,16 @@ def main(argv=None):
     # the latent and scores another baseline)
     naive_mode = "ar" if (args.naive and args.train_mode == "diff") \
         else args.train_mode
-    # eager: the FVD CLI's compiled programs (the JAX CLI's jitted predict
-    # and decode) come with the training step's (ROADMAP)
     predict = make_predict_fn(model, codec, args.pred_frames,
                               window=cfg.frames_per_clip, mode=naive_mode,
                               refiner=refiner,
                               future_horizon=cfg.frames_to_predict,
-                              compiled=False)
+                              compiled=compiled)
+    decode = make_decode_fn(codec, compiled)
     embedder = build_embedder(args, device)
-
-    def features(videos_u8):
-        return i3d(preprocess_videos(videos_u8))
-
-    stats = make_sharded_features(i3d, layout)
+    features = (jitted_features(i3d) if compiled
+                else lambda v: i3d(preprocess_videos(v)))
+    stats = make_sharded_features(features, layout)
 
     def gen_video(context_frames, indices):
         """context uint8 -> [context + decoded predictions] uint8 video."""
@@ -200,7 +211,7 @@ def main(argv=None):
                  for i in indices])
         _, preds = predict(context_frames, text_embeds)
         B, P, L = preds.shape
-        dec = codec.decode_latents(preds.reshape(B * P, L))
+        dec = decode(preds.reshape(B * P, L))
         return torch.cat([context_frames,
                           dec.reshape(B, P, *dec.shape[1:])], dim=1)
 
@@ -236,6 +247,10 @@ def main(argv=None):
             n = keep
         lo, hi = layout.rows(n)            # this data rank's rows
         window.set(lo, hi, n)
+        events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                  if args.timing and device.type == "cuda" else [])
+        if events:
+            events[0].record()
         t0 = time.perf_counter()
         frames = torch.from_numpy(np.asarray(frames[lo:hi])).to(device)
         gen = gen_video(frames[:, :F], list(indices)[lo:hi])
@@ -243,6 +258,8 @@ def main(argv=None):
         mse_sum += float(torch.sum(diff * diff))
         mse_n += diff.numel()
         t1 = time.perf_counter()
+        if events:
+            events[1].record()
         if args.fvd_api == "streaming":
             st_real = st_real.merge(stats(frames))
             st_gen = st_gen.merge(stats(gen))
@@ -252,6 +269,12 @@ def main(argv=None):
         t2 = time.perf_counter()
         walls.append({"clips": int(frames.shape[0]),
                       "gen_s": round(t1 - t0, 4), "i3d_s": round(t2 - t1, 4)})
+        if events:
+            events[2].record()
+            events[2].synchronize()
+            walls[-1].update(
+                gen_span_ms=round(events[0].elapsed_time(events[1]), 3),
+                i3d_span_ms=round(events[1].elapsed_time(events[2]), 3))
         n_clips += n
         if (bi + 1) % args.fvd_every == 0 and lead:
             print(f"[{n_clips} clips] FVD so far: "
@@ -273,7 +296,9 @@ def main(argv=None):
                           "total_s": round(time.perf_counter() - t_start, 3),
                           "note": "gen_s: rollout, decode and MSE (ends on "
                                   "a device sync); i3d_s: I3D of the real "
-                                  "and the generated clips"}))
+                                  "and the generated clips; *_span_ms: the "
+                                  "card's time between CUDA events around "
+                                  "each part, idle gaps included"}))
     return fvd, mse
 
 

@@ -22,6 +22,13 @@ The state is ``{"mu": {name: tensor}, "nu": {name: tensor}}`` under the
 parameters' names, so that it bridges from a JAX ``opt_state``
 (``diffusion/weights.train_state_from_jax``); the step count lives with the
 train state.
+
+The bias corrections ``1 - b^t`` change every step, so they are not Python
+numbers inside the update (a CUDA graph would freeze them): the host
+computes them as optax does (f32, then rounded to each group's dtype) and
+fills one pair of 0-d tensors on the parameters' device per ``(dtype,
+mu_dtype)`` group (``set_count``), which ``update`` divides by. Eager and
+compiled steps run this one arithmetic.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ class Adam:
                  eps: float = 1e-8, mu_dtype: torch.dtype | None = None):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.mu_dtype = mu_dtype
+        # (dtype, mu_dtype) -> (1 - b1^t, 1 - b2^t) as 0-d tensors of dtype
+        self.bias_corrections: dict = {}
 
     def init(self, params: dict) -> dict:
         """Zero moments for ``params`` (name -> tensor)."""
@@ -50,15 +59,33 @@ class Adam:
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: dict,
-               count: int) -> None:
-        """One Adam update in place; ``count`` is the step's number, from 1.
-        A parameter without a gradient (one the forward does not use) keeps
-        its value and its zero moments, as a zero gradient would leave them."""
+    def set_count(self, params: dict, state: dict, count: int) -> None:
+        """Fill the bias corrections of step number ``count`` (from 1) into
+        the device tensors ``update`` reads: the host part of a step."""
         # 1 - decay^count in f32, as optax computes it before the cast
-        bc1, bc2 = (float(np.float32(1) - np.power(np.float32(b),
-                                                   np.float32(count)))
-                    for b in (self.b1, self.b2))
+        bc = [float(np.float32(1) - np.power(np.float32(b), np.float32(count)))
+              for b in (self.b1, self.b2)]
+        for name, p in params.items():
+            key = (p.dtype, state["mu"][name].dtype)
+            if key not in self.bias_corrections:
+                self.bias_corrections[key] = tuple(
+                    torch.zeros((), dtype=p.dtype, device=p.device)
+                    for _ in bc)
+        for (dtype, _), pair in self.bias_corrections.items():
+            for t, v in zip(pair, bc):
+                t.fill_(_rounded(v, dtype))
+
+    @torch.no_grad()
+    def update(self, params: dict, grads: dict, state: dict,
+               count: int | None = None) -> None:
+        """One Adam update in place, with the bias corrections of step
+        number ``count`` (from 1), or, without it, those the last
+        ``set_count`` filled in (the compiled step's way: no host scalar
+        changes inside it). A parameter without a gradient (one the forward
+        does not use) keeps its value and its zero moments, as a zero
+        gradient would leave them."""
+        if count is not None:
+            self.set_count(params, state, count)
         groups = collections.defaultdict(list)
         for name, g in grads.items():
             if g is not None:
@@ -78,8 +105,9 @@ class Adam:
             torch._foreach_add_(mu, g, alpha=r(1 - self.b1))
             torch._foreach_mul_(nu, r(self.b2))
             torch._foreach_addcmul_(nu, g, g, value=r(1 - self.b2))
-            update = torch._foreach_div(mu, r(bc1))
-            denom = torch._foreach_div(nu, r(bc2))
+            bc1, bc2 = self.bias_corrections[(dtype, mu_dtype)]
+            update = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div(nu, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, r(self.eps))
             torch._foreach_div_(update, denom)

@@ -24,6 +24,20 @@ step synchronises the host. The dropout draws of a step come from a
 ``torch.Generator`` seeded from (seed, step number): a run resumed from a
 checkpoint draws what an uninterrupted one would.
 
+Compiled programs (``utils/jit.py``, the JAX trainer's ``jax.jit`` sites):
+in a run of one process the step after its host part (``step_impl``, its
+state donated: the parameters and Adam's moments update in place inside
+the program), the eval step (``eval_impl``) and in-training FVD's batch
+(``fvd_batch``) each run as one CUDA graph per batch shape on the card,
+and as they are on the CPU. The host part of a step seeds the dropout
+generator (registered with the capture, so a replay draws what the eager
+step draws for that seed), puts the batch on the device, fills Adam's bias
+corrections for the step number and advances it: nothing in the program
+changes from step to step but what those set. A run over a process group
+stays eager: its all-reduces (gloo on one card) and the mesh's collectives
+are host calls that a CUDA graph cannot hold. The ``Trainer`` decides that
+once, when it builds the step (``Trainer.compiled``).
+
 Precisions (``--precision``): ``f32``; ``bf16`` (bf16 compute on f32 master
 parameters with f32 moments); ``bf16_full`` (bf16 parameters and bf16 Adam
 moments).
@@ -61,6 +75,7 @@ at a barrier.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
@@ -85,6 +100,7 @@ from sd_video_gen_tpu_torch.parallel.mesh import make_layout, parse_mesh_spec
 from sd_video_gen_tpu_torch.train import checkpoint as ckpt
 from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
 from sd_video_gen_tpu_torch.train.optim import Adam
+from sd_video_gen_tpu_torch.utils.jit import jit
 
 PRECISIONS = ("f32", "bf16", "bf16_full")
 
@@ -118,17 +134,35 @@ class TrainState:
         self.step = int(sd["step"])
 
 
+@contextlib.contextmanager
+def autotuned_convolutions():
+    """cuDNN's benchmark mode while open: each convolution shape's fastest
+    algorithm is timed once per process, at its first call, and kept. The
+    heuristics otherwise choose by the allocator's largest cached block:
+    for the f32 VAE encode of a 64 x 5-frame batch at 128px, FFT algorithms
+    with tens of GiB of workspace where memory is free (1.55x slower), which
+    a captured step would then hold for good."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
 def encode_or_passthrough(codec, batch, use_sos: bool) -> torch.Tensor:
-    """uint8 frames (B, T, H, W, 3) -> latents through the codec; f32
-    (B, T, L) batches (from a ``LatentCacheDataset``) pass through with only
-    the SOS handling. The codec is frozen: it runs without autograd, and its
-    output enters the graph as a constant."""
+    """uint8 frames (B, T, H, W, 3) -> latents through the codec (its
+    convolutions autotuned, ``autotuned_convolutions``); f32 (B, T, L)
+    batches (from a ``LatentCacheDataset``) pass through with only the SOS
+    handling. The codec is frozen: it runs without autograd, and its output
+    enters the graph as a constant."""
     batch = torch.as_tensor(batch)
     with torch.no_grad():
         if batch.ndim == 3:  # pre-encoded latents
             latents = batch.to(codec.device, torch.float32)
             return add_sos(latents) if use_sos else latents
-        return codec.encode_batch(batch, use_sos=use_sos)
+        with autotuned_convolutions():
+            return codec.encode_batch(batch, use_sos=use_sos)
 
 
 def _predictions_and_targets(model, latents, k: int, mode: str,
@@ -182,8 +216,22 @@ def _to_device(text_embeds, device):
     return torch.as_tensor(text_embeds).to(device)
 
 
+def _batch_to(frames, device) -> torch.Tensor:
+    """A batch (uint8 frames or f32 latents) on ``device``: the host's part
+    of a compiled program's input (a copy from the host cannot be
+    captured)."""
+    return torch.as_tensor(frames).to(device)
+
+
+def grouped(layout) -> bool:
+    """True where ``layout`` spans a process group (a ``data`` group or a
+    model axis): its programs stay eager (module docstring)."""
+    return layout.data_group is not None or layout.model > 1
+
+
 def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
-                    mode: str = "ar", mu_dtype=None, layout=None):
+                    mode: str = "ar", mu_dtype=None, layout=None,
+                    compiled: bool = True):
     """Build (init_fn, step_fn) over ``model`` (a trainable
     ``FrameTransformer``) and the frozen ``codec``.
 
@@ -193,22 +241,56 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     device (no synchronisation). ``mu_dtype`` goes to Adam. Loss terms are
     always computed in f32, whatever the model's compute dtype (GDL's
     differences and NCE's logits lose real precision in bf16).
-    In a process group the gradients are averaged over the ``data`` group
-    of ``layout`` (``parallel/mesh.py``; default: every process on
-    ``data``), one all-reduce a step, before the update, and the data rank
-    salts the dropout seed; the components stay this process's own. With a
-    model axis, ``model`` is this rank's shard and the model rank salts the
-    seed of the dropout on its own heads and features."""
+
+    ``step_fn`` is the host part (dropout seed, the batch to the device,
+    Adam's bias corrections, the step number) around ``step_impl`` (encode,
+    forward, loss, gradient, Adam in place), which with ``compiled`` is one
+    ``jit`` program (``step_fn.impl``: a CUDA graph per batch shape on the
+    card, its state donated and its dropout generator registered). A step
+    over a process group cannot be captured, so with one in ``layout``
+    ``compiled`` must be False (``ValueError`` otherwise): in a process
+    group the gradients are averaged over the ``data`` group of ``layout``
+    (``parallel/mesh.py``; default: every process on ``data``), one
+    all-reduce a step, before the update, and the data rank salts the
+    dropout seed; the components stay this process's own. With a model
+    axis, ``model`` is this rank's shard and the model rank salts the seed
+    of the dropout on its own heads and features."""
     k = cfg.frames_to_predict
     use_sos = mode not in ("future", "learned_tgt")
     opt = Adam(cfg.lr, mu_dtype=mu_dtype)
     device = _device_of(model)
     layout = layout or make_layout()
+    if compiled and grouped(layout):
+        raise ValueError(
+            "make_train_step: a step over a process group cannot be "
+            "compiled (its all-reduces and the mesh's collectives are host "
+            "calls a CUDA graph cannot hold): pass compiled=False")
     generator = torch.Generator(device=device)
     local = torch.Generator(device=device) if layout.model > 1 else None
 
     def init_fn() -> TrainState:
         return TrainState(model, opt.init(dict(model.named_parameters())))
+
+    def step_impl(trees, frames, text_embeds):
+        params, opt_state = trees
+        names = list(params)
+        with torch.enable_grad():
+            latents = encode_or_passthrough(codec, frames, use_sos)
+            pred_k, target_k = _predictions_and_targets(
+                model, latents, k, mode, generator, text_embeds, local)
+            total, comps = composite_loss(pred_k.float(), target_k.float(),
+                                          loss_w)
+            grads = torch.autograd.grad(total, [params[n] for n in names],
+                                        allow_unused=True)
+        if layout.data_group is not None:
+            multihost.all_reduce_mean([g for g in grads if g is not None],
+                                      "grads", layout.data_group)
+        opt.update(params, dict(zip(names, grads)), opt_state)
+        return {name: v.detach() for name, v in comps.items()}
+
+    impl = (jit(step_impl, name="step_impl", donate_argnums=0, grad=True,
+                generators=[g for g in (generator, local) if g is not None])
+            if compiled else step_impl)
 
     def step_fn(state: TrainState, frames, seed: int, text_embeds=None):
         if not model.training:
@@ -218,46 +300,92 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
         if local is not None:
             local.manual_seed(dropout_seed(seed, state.step, layout.data_rank,
                                            layout.model_rank))
-        latents = encode_or_passthrough(codec, frames, use_sos)
-        pred_k, target_k = _predictions_and_targets(
-            model, latents, k, mode, generator,
-            _to_device(text_embeds, device), local)
-        total, comps = composite_loss(pred_k.float(), target_k.float(),
-                                      loss_w)
-        names = list(state.params)
-        grads = torch.autograd.grad(total, [state.params[n] for n in names],
-                                    allow_unused=True)
-        if layout.data_group is not None:
-            multihost.all_reduce_mean([g for g in grads if g is not None],
-                                      "grads", layout.data_group)
+        opt.set_count(state.params, state.opt_state, state.step + 1)
+        comps = impl((state.params, state.opt_state),
+                     _batch_to(frames, device),
+                     _to_device(text_embeds, device))
         state.step += 1
-        opt.update(state.params, dict(zip(names, grads)), state.opt_state,
-                   state.step)
-        return state, {name: v.detach() for name, v in comps.items()}
+        return state, comps
 
+    step_fn.impl = impl
     return init_fn, step_fn
 
 
 def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
-                   mode: str = "ar"):
+                   mode: str = "ar", compiled: bool = True):
     """``eval_fn(frames[, text_embeds])`` -> the loss components of the
     model as it stands, without dropout or autograd; f32 loss math like the
     train side (bf16 GDL differences or NCE logits would make val_loss, and
-    ``save_best`` with it, noisy)."""
+    ``save_best`` with it, noisy). With ``compiled``, after the batch's copy
+    to the device it is one ``jit`` program (``eval_fn.impl``, the JAX
+    trainer's ``eval_impl``), captured with the model in ``eval()`` mode."""
     k = cfg.frames_to_predict
     use_sos = mode not in ("future", "learned_tgt")
     device = _device_of(model)
+
+    def eval_impl(frames, text_embeds):
+        latents = encode_or_passthrough(codec, frames, use_sos)
+        pred_k, target_k = _predictions_and_targets(
+            model, latents, k, mode, None, text_embeds)
+        return composite_loss(pred_k.float(), target_k.float(), loss_w)[1]
+
+    impl = jit(eval_impl, name="eval_impl") if compiled else eval_impl
 
     @torch.no_grad()
     def eval_fn(frames, text_embeds=None):
         if model.training:
             model.eval()
-        latents = encode_or_passthrough(codec, frames, use_sos)
-        pred_k, target_k = _predictions_and_targets(
-            model, latents, k, mode, None, _to_device(text_embeds, device))
-        return composite_loss(pred_k.float(), target_k.float(), loss_w)[1]
+        return impl(_batch_to(frames, device),
+                    _to_device(text_embeds, device))
 
+    eval_fn.impl = impl
     return eval_fn
+
+
+def make_fvd_batch(model, codec, cfg: Config, mode: str = "ar",
+                   compiled: bool = True):
+    """``fvd_batch(i3d, frames, text_embeds, protocol)`` -> the I3D
+    statistics of one batch's generated and real clips, ``(n, Σx, Σxxᵀ)``
+    each, the sums in f32 on the device (``FeatureStats.of_batch``): encode,
+    teacher-forced predictions by ``protocol`` (``Trainer.fvd_validation``),
+    decode, I3D at 224px. With ``compiled`` it is one ``jit`` program (the
+    JAX trainer's ``fvd_batch``) per (I3D module, protocol, batch shape);
+    ``frames`` must be on the device and the model in ``eval()`` mode."""
+    from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats,
+                                                       preprocess_videos)
+    k = cfg.frames_to_predict
+
+    def pad_time(v, min_t: int = 9):
+        if v.shape[1] >= min_t:
+            return v
+        reps = -(-min_t // v.shape[1])
+        return v.repeat(1, reps, 1, 1, 1)[:, :min_t]
+
+    def stats(i3d, v):
+        st = FeatureStats.of_batch(i3d(preprocess_videos(pad_time(v))))
+        return st.n, st.raw_sum, st.raw_prod
+
+    def fvd_batch(i3d, frames, text_embeds, protocol):
+        latents = encode_or_passthrough(
+            codec, frames, mode not in ("future", "learned_tgt"))
+        if protocol == "reference":
+            y_in = latents[:, :-1]
+            kw = {} if text_embeds is None else {"text_embeds": text_embeds}
+            pred = model(latents, y_in, tgt_mask=causal_mask(
+                y_in.shape[1], device=latents.device), **kw)
+            if mode == "diff":
+                pred = pred + y_in    # the residual at every step
+            real = frames
+        else:
+            pred, _ = _predictions_and_targets(model, latents, k, mode, None,
+                                               text_embeds)
+            real = frames[:, -k:]
+        B, T = pred.shape[:2]
+        dec = codec.decode_latents(pred.float().reshape(B * T,
+                                                        codec.latent_dim))
+        return stats(i3d, dec.reshape(B, T, *dec.shape[1:])), stats(i3d, real)
+
+    return jit(fvd_batch, name="fvd_batch") if compiled else fvd_batch
 
 
 class _NoLogger:
@@ -324,6 +452,10 @@ class Trainer:
         self.logger = (MetricsLogger(self.run_name, log_dir=log_dir,
                                      use_wandb=use_wandb and not debug)
                        if self.is_coordinator else _NoLogger())
+        # one process: the step, eval and FVD batch compiled; a process
+        # group stays eager (module docstring)
+        self.compiled = not grouped(self.layout)
+        self._fvd_batch = None
         self.model = None
         self.state = None
         self.best_train = float("inf")
@@ -343,9 +475,15 @@ class Trainer:
             "transformer", self.model.state_dict(), self.layout.model)
         self._init_fn, self._step_fn = make_train_step(
             self.model, self.codec, self.loss_w, self.cfg, self.mode,
-            mu_dtype=torch.bfloat16 if full else None, layout=self.layout)
+            mu_dtype=torch.bfloat16 if full else None, layout=self.layout,
+            compiled=self.compiled)
         self._eval_fn = make_eval_step(self.model, self.codec, self.loss_w,
-                                       self.cfg, self.mode)
+                                       self.cfg, self.mode, self.compiled)
+        self._fvd_batch = make_fvd_batch(self.model, self.codec, self.cfg,
+                                         self.mode, self.compiled)
+        if self.compiled:       # one after another: one memory pool
+            self._eval_fn.impl.share_pool(self._step_fn.impl)
+            self._fvd_batch.share_pool(self._step_fn.impl)
         self.state = self._init_fn()
         n = sum(p.numel() * (self.layout.model if self.placements[k] else 1)
                 for k, p in self.state.params.items())
@@ -477,10 +615,11 @@ class Trainer:
             anchors position 0) against the whole clip.
         ``future`` / ``learned_tgt`` emit exactly k frames, so ``reference``
         falls back to ``last_k`` there with a warning. Clips shorter than
-        I3D's 9 frames are tiled in time, identically on both sides."""
-        from sd_video_gen_tpu_torch.evaluation.fvd import (
-            FeatureStats, compute_fvd, preprocess_videos)
-        k = self.cfg.frames_to_predict
+        I3D's 9 frames are tiled in time, identically on both sides. A
+        batch is one program (``make_fvd_batch``); its sums merge on the
+        host in f64."""
+        from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats,
+                                                           compute_fvd)
         if protocol not in ("last_k", "reference"):
             raise ValueError(f"unknown fvd protocol {protocol!r}")
         if protocol == "reference" and self.mode in ("future", "learned_tgt"):
@@ -489,16 +628,6 @@ class Trainer:
                 "(single-shot models emit exactly k frames); using last_k",
                 stacklevel=2)
             protocol = "last_k"
-
-        def pad_time(v, min_t: int = 9):
-            if v.shape[1] >= min_t:
-                return v
-            reps = -(-min_t // v.shape[1])
-            return v.repeat(1, reps, 1, 1, 1)[:, :min_t]
-
-        def features(v):
-            return FeatureStats.of_batch(i3d(preprocess_videos(pad_time(v))))
-
         model = self.model
         was_training = model.training
         model.eval()
@@ -515,28 +644,10 @@ class Trainer:
                         "--fvd_every")
                 frames = multihost.global_batch_from_local(frames,
                                                            self.device)
-                te = self._texts(indices)
-                latents = encode_or_passthrough(
-                    self.codec, frames,
-                    self.mode not in ("future", "learned_tgt"))
-                if protocol == "reference":
-                    y_in = latents[:, :-1]
-                    kw = {} if te is None else {"text_embeds": te}
-                    pred = model(latents, y_in, tgt_mask=causal_mask(
-                        y_in.shape[1], device=latents.device), **kw)
-                    if self.mode == "diff":
-                        pred = pred + y_in    # the residual at every step
-                    real = frames
-                else:
-                    pred, _ = _predictions_and_targets(model, latents, k,
-                                                       self.mode, None, te)
-                    real = frames[:, -k:]
-                B, T = pred.shape[:2]
-                dec = self.codec.decode_latents(
-                    pred.float().reshape(B * T, self.codec.latent_dim))
-                st_gen = st_gen.merge(features(dec.reshape(
-                    B, T, *dec.shape[1:])))
-                st_real = st_real.merge(features(real))
+                gen, real = self._fvd_batch(i3d, frames,
+                                            self._texts(indices), protocol)
+                st_gen = st_gen.merge(FeatureStats(400, *gen))
+                st_real = st_real.merge(FeatureStats(400, *real))
         finally:
             model.train(was_training)
         if self.layout.data_group is not None:

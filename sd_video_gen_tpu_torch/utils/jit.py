@@ -20,13 +20,43 @@ A key's first call is its compile: a static buffer is made for each input
 eagerly on those buffers on a side stream (the warm-up: cuBLAS and cuDNN
 handles, ``nhwc_plan``'s cache, the flash kernel's TMA encoder, the
 refiner's noise draws), and then it is captured into a ``CUDAGraph``. Every
-graph of one ``jit`` shares one memory pool. Each call copies its inputs
+graph of one ``jit`` shares one memory pool (``share_pool``: several jits'
+graphs too). Each call copies its inputs
 into the buffers, replays the graph (between two CUDA events:
 ``replay_ms``) and returns a copy of every tensor of the output (JAX
 returns fresh arrays: without the copies, a result the caller holds would
 be overwritten by the next replay). The whole call runs under
 ``torch.inference_mode``: the programs are forward only, and an input that
 requires grad with grad mode on raises.
+
+A program that trains, ``jit(step, donate_argnums=0, generators=(g,),
+grad=True)``, is the counterpart of ``jax.jit(step, donate_argnums=(0,))``:
+
+  - ``grad``: ``fn`` runs with grad mode on (``torch.autograd.grad``
+    inside it), not under ``inference_mode``, and its static buffers are
+    ordinary tensors;
+  - ``donate_argnums``: those arguments are trees of tensors that ``fn``
+    updates in place (the parameters and Adam's moments). They are keyed
+    by the identity of each tensor, and read and written where they lie,
+    never copied into a static buffer: a ``load_state_dict`` that copies
+    into them is seen by the next replay (a tensor put in another's place
+    is another key). The compile's warm-up takes a step, so it is undone:
+    the donated tensors and the generators go back to what they held
+    before it, and the first call replays the new graph as every later one
+    does. N calls take N steps, all of them the graph's (cuDNN may give up,
+    inside a capture, an algorithm the warm-up ran, and keep the one it
+    captured for the later eager calls too);
+  - ``generators``: the ``torch.Generator`` s ``fn`` draws from (dropout).
+    Each capture registers them (``CUDAGraph.register_generator_state``),
+    so a replay draws from each one's state at replay time (a
+    ``manual_seed`` on the host before the call) and advances it as far as
+    the eager call would: the same draws, bit for bit.
+
+A host scalar that changes from call to call (a step number, a seed, Adam's
+bias corrections) must not be an argument: a hashable argument is part of
+the key, one graph per value, and it is baked into that graph. It goes into
+a generator's state or into a device tensor that the host fills before the
+call.
 
 A capture that fails raises, naming the last torch function it reached
 (an ``.item()`` or a host-to-device copy from pageable memory cannot be
@@ -137,20 +167,25 @@ class CudaGraphs:
                 call()
             torch.cuda.current_stream().wait_stream(side)
 
-    def release_generators(self, device):
+    def release_generators(self, device, generators=()):
         """After a failed capture: a capture enrols the device's default
-        generator, and an ended capture that failed leaves it enrolled (its
-        next draw outside a capture raises). A fresh state of the same seed
-        and offset frees it."""
+        generator and the registered ones, and an ended capture that failed
+        leaves them enrolled (a next draw outside a capture raises). A
+        fresh state of the same seed and offset frees each."""
         if device.type == "cuda":
             index = (device.index if device.index is not None
                      else torch.cuda.current_device())
-            gen = torch.cuda.default_generators[index]
-            gen.graphsafe_set_state(gen.clone_state())
+            for gen in (torch.cuda.default_generators[index], *generators):
+                gen.graphsafe_set_state(gen.clone_state())
 
-    def capture(self, device, pool, call):
-        """``(graph, output)`` of ``call`` captured on ``device``."""
+    def capture(self, device, pool, call, generators=(), donated=()):
+        """``(graph, output)`` of ``call`` captured on ``device``, with
+        ``generators`` registered. A capture runs nothing, so the
+        ``donated`` tensors (those ``call`` updates in place) keep their
+        values."""
         graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
+        for gen in generators:
+            graph.register_generator_state(gen)
         if self.debug:
             graph.enable_debug_mode()
         with torch.cuda.device(device):
@@ -188,18 +223,25 @@ def _add(counts: list) -> None:
 
 
 class _Graph:
-    __slots__ = ("graph", "inputs", "out", "counts", "keep")
+    __slots__ = ("graph", "device", "inputs", "out", "counts", "keep")
 
-    def __init__(self, graph, inputs, out, counts, keep):
-        self.graph, self.inputs, self.out = graph, inputs, out
+    def __init__(self, graph, device, inputs, out, counts, keep):
+        self.graph, self.device, self.inputs, self.out = (graph, device,
+                                                          inputs, out)
         self.counts, self.keep = counts, keep
 
 
 class jit:
     """``fn`` compiled per key (module docstring)."""
 
-    def __init__(self, fn, static_argnames=(), name: str | None = None):
+    def __init__(self, fn, static_argnames=(), name: str | None = None,
+                 donate_argnums=(), generators=(), grad: bool = False):
         self.fn = fn
+        self.donate = frozenset((donate_argnums,)
+                                if isinstance(donate_argnums, int)
+                                else donate_argnums)
+        self.generators = tuple(generators)
+        self.grad = grad
         self._events = None     # CUDA events around the last replay
         self.name = name or getattr(fn, "__qualname__", repr(fn))
         self.static_argnames = frozenset((static_argnames,)
@@ -214,7 +256,16 @@ class jit:
                                          p.POSITIONAL_OR_KEYWORD)}
         self._graphs: dict = {}
         self._pool = None
+        self._pool_of = self    # the jit whose memory pool this one's use
         functools.update_wrapper(self, fn, updated=())
+
+    def share_pool(self, other: "jit") -> "jit":
+        """Capture this jit's graphs into ``other``'s memory pool: programs
+        that run one after another on one stream (a trainer's step, eval
+        and FVD batch) then hold one pool between them. Each call clones
+        its outputs before the next replay can reuse that memory."""
+        self._pool_of = other._pool_of
+        return self
 
     @property
     def n_graphs(self) -> int:
@@ -243,17 +294,18 @@ class jit:
         if self.eager():
             return self.fn(*args, **kwargs)
         slots = [(i, a) for i, a in enumerate(args)] + sorted(kwargs.items())
-        tensors = [a for _, a in self._inputs(slots)]
+        tensors = ([a for _, a in self._inputs(slots)]
+                   + self._donated_leaves(slots))
         if not tensors or not BACKEND.applies(tensors):
             return self.fn(*args, **kwargs)
         key = tuple(self._key_of(where, a) for where, a in slots)
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._compile(key, args, kwargs)
-        with torch.inference_mode():
+        with self._mode():
             for buf, (where, a) in zip(entry.inputs, self._inputs(slots)):
                 buf.copy_(a)
-            timed = entry.inputs[0].is_cuda
+            timed = entry.device.type == "cuda"
             if timed:
                 self._events = [torch.cuda.Event(enable_timing=True)
                                 for _ in range(2)]
@@ -266,12 +318,28 @@ class jit:
                 lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
                 entry.out)
 
+    def _mode(self):
+        """What a call's copies and replay run under: no autograd."""
+        return torch.no_grad() if self.grad else torch.inference_mode()
+
     def _static(self, where) -> bool:
         name = where if isinstance(where, str) else next(
             (n for n, i in self._positions.items() if i == where), None)
         return name in self.static_argnames
 
+    def _donated(self, where) -> bool:
+        return (where if isinstance(where, int)
+                else self._positions.get(where)) in self.donate
+
+    def _donated_leaves(self, slots) -> list:
+        return [t for w, a in slots if self._donated(w)
+                for t in pytree.tree_leaves(a) if isinstance(t, torch.Tensor)]
+
     def _key_of(self, where, a):
+        if self._donated(where):
+            return (where, "donated", tuple(
+                id(t) for t in pytree.tree_leaves(a)
+                if isinstance(t, torch.Tensor)))
         if isinstance(a, torch.Tensor) and not self._static(where):
             if torch.is_grad_enabled() and a.requires_grad:
                 raise ValueError(f"jit({self.name}): argument {where} "
@@ -287,12 +355,14 @@ class jit:
 
     def _inputs(self, slots):
         return [(w, a) for w, a in slots
-                if isinstance(a, torch.Tensor) and not self._static(w)]
+                if isinstance(a, torch.Tensor) and not self._static(w)
+                and not self._donated(w)]
 
     def _compile(self, key, args, kwargs) -> _Graph:
         slots = [(i, a) for i, a in enumerate(args)] + sorted(kwargs.items())
         inputs = self._inputs(slots)
-        devices = {a.device for _, a in inputs}
+        donated = self._donated_leaves(slots)
+        devices = {a.device for _, a in inputs} | {t.device for t in donated}
         if len(devices) != 1:
             raise ValueError(f"jit({self.name}): inputs on "
                              f"{sorted(map(str, devices))}: move every "
@@ -300,23 +370,34 @@ class jit:
                              f"from the host cannot be captured)")
         (device,) = devices
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with self._mode():
             bufs = [torch.empty_like(a).copy_(a) for _, a in inputs]
         static = dict(zip((w for w, _ in inputs), bufs))
         call_args = [static.get(i, a) for i, a in enumerate(args)]
         call_kwargs = {k: static.get(k, a) for k, a in kwargs.items()}
 
         def call():
-            with torch.inference_mode():
+            with (torch.enable_grad() if self.grad
+                  else torch.inference_mode()):
                 return self.fn(*call_args, **call_kwargs)
 
+        with torch.no_grad():
+            kept = [t.clone() for t in donated]
+        states = [g.get_state() for g in self.generators]
         before = _snapshot()
         with _nested():
             BACKEND.warmup(device, call)
         warm_counts = _since(before)
+        with torch.no_grad():       # undo the warm-up's step
+            for t, k in zip(donated, kept):
+                t.copy_(k)
+        del kept
+        for g, st in zip(self.generators, states):
+            g.set_state(st)
         t1 = time.perf_counter()
-        if self._pool is None:
-            self._pool = BACKEND.new_pool(device)
+        owner = self._pool_of
+        if owner._pool is None:
+            owner._pool = BACKEND.new_pool(device)
         mid = _snapshot()
         last = _LastOp()
 
@@ -325,19 +406,20 @@ class jit:
                 return call()
         try:
             with _nested():
-                graph, out = BACKEND.capture(device, self._pool, traced)
+                graph, out = BACKEND.capture(device, owner._pool, traced,
+                                             self.generators, donated)
         except Exception as e:
             _take_out(_since(before))
-            BACKEND.release_generators(device)
+            BACKEND.release_generators(device, self.generators)
             raise RuntimeError(f"jit({self.name}): the capture failed after "
                                f"{last.name()}: {type(e).__name__}: {e}") \
                 from e
         counts = _since(mid)
         _take_out(counts)
         _take_out(warm_counts)
-        entry = _Graph(graph, bufs, out, counts,
+        entry = _Graph(graph, device, bufs, out, counts,
                        keep=[a for (_, a), k in zip(slots, key)
-                             if k[1] == "id"])
+                             if k[1] == "id"] + donated)
         self._graphs[key] = entry
         COMPILES.append(dict(
             name=self.name, shapes=[list(b.shape) for b in bufs],

@@ -5,6 +5,10 @@ Writes ONE contiguous (N, T, latent_dim) f32 array + clip index per stage,
 which ``data/latent_cache.LatentCacheDataset`` memory-maps for epochs with no
 image decode and no codec in the loop (``train.trainer --latent_cache``).
 
+The encode is one compiled program per batch shape (``utils/jit.py``: a
+CUDA graph on the card; the ragged last batch is a second), the JAX tool's
+jitted ``encode``; each batch is copied to the codec's device first.
+
 Usage:
   python -m sd_video_gen_tpu_torch.utils.preprocess --dataset ball \
       --folder <dir> --config <cfg> [--codec vae --vae_weights vae.pt] \
@@ -13,6 +17,7 @@ Usage:
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import warnings
@@ -23,6 +28,14 @@ import torch
 from sd_video_gen_tpu_torch.codecs import make_codec
 from sd_video_gen_tpu_torch.config import (add_device_flag, build_arg_parser,
                                            load_config, strict_f32)
+from sd_video_gen_tpu_torch.utils.jit import jit
+
+
+@functools.lru_cache(maxsize=1)
+def jitted_encode(codec):
+    """``codec.encode_frames`` as one compiled program of this codec (one
+    codec's at a time: its graphs hold their memory pool)."""
+    return jit(codec.encode_frames, name="encode")
 
 
 @torch.no_grad()
@@ -37,8 +50,8 @@ def build_latent_cache(dataset, codec, out_dir: str, stage: str,
             indices.append(list(map(int, idx)) if hasattr(idx, "__len__")
                            else [int(idx)])
             frames.append(fr)
-        x = torch.from_numpy(np.stack(frames))
-        lats.append(codec.encode_frames(x).float().cpu().numpy())
+        x = torch.from_numpy(np.stack(frames)).to(codec.device)
+        lats.append(jitted_encode(codec)(x).float().cpu().numpy())
     arr = np.concatenate(lats, axis=0).astype(np.float32)
     path = os.path.join(out_dir, f"{stage}_latents.npy")
     np.save(path, arr)

@@ -2,7 +2,7 @@
 and the serving entry points built on them, on the CPU.
 
 A CUDA graph cannot be captured here, so ``jit``'s backend is replaced by a
-stand-in (``ReplayGraphs``) whose graph replays the captured function: its
+stand-in (``ReplayGraphs``, ``tests/torch_port_common.py``) whose graph replays the captured function: its
 capture runs the function once on the static inputs (as a capture records
 it), its replay runs it again and writes the result into the captured
 outputs in place (as a replay rewrites the graph's memory), with the
@@ -21,14 +21,11 @@ against eager) is ``tests/test_torch_jit_cuda.py``, which imports torch
 only.
 """
 
-import collections
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from sd_video_gen_tpu.ops.cached_rollout import (
@@ -48,7 +45,8 @@ from sd_video_gen_tpu_torch.predict.predict import (make_decode_fn,
                                                     make_predict_fn)
 from sd_video_gen_tpu_torch.tools.bench_harness import launch_window
 from sd_video_gen_tpu_torch.utils import jit as J
-from torch_port_common import sd_pair, t, transformer_pair
+from torch_port_common import (ReplayGraphs, sd_pair, t,
+                               transformer_pair)
 
 L, PRED = 16, 3
 
@@ -61,49 +59,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class ReplayGraphs(J.CudaGraphs):
-    """The stand-in for ``torch.cuda.CUDAGraph`` (module docstring)."""
-
-    def __init__(self):
-        self.captures = 0
-
-    def applies(self, tensors):
-        return True
-
-    def new_pool(self, device):
-        return None
-
-    def warmup(self, device, call):
-        call()
-
-    def release_generators(self, device):
-        pass
-
-    def capture(self, device, pool, call):
-        self.captures += 1
-        out = call()
-        return _Replay(call, out), out
-
-
-class _Replay:
-    def __init__(self, call, out):
-        self.call, self.out = call, out
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-        before = [collections.Counter(c) for c in _kernels.counters()]
-        with J._nested():                  # what it runs is the graph's
-            new = self.call()
-        for c, b in zip(_kernels.counters(), before):
-            c.clear()
-            c.update(b)
-        for old, fresh in zip(pytree.tree_leaves(self.out),
-                              pytree.tree_leaves(new)):
-            if isinstance(old, torch.Tensor):
-                old.copy_(fresh)
 
 
 @pytest.fixture
@@ -248,9 +203,9 @@ class _RefuseItem(TorchDispatchMode):
 class RefusingGraphs(ReplayGraphs):
     """A capture that refuses a host sync, as the card's does."""
 
-    def capture(self, device, pool, call):
+    def capture(self, device, pool, call, *rest):
         with _RefuseItem():
-            return super().capture(device, pool, call)
+            return super().capture(device, pool, call, *rest)
 
 
 def test_a_failed_capture_raises_naming_the_op(monkeypatch):

@@ -7,13 +7,18 @@ installed (the repository's conftest imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_jit_cuda.py -m cuda
 
 A compiled request runs the same kernels on the same inputs as the eager
-one: equal bit for bit, with the same launches by body.
+one: equal bit for bit, with the same launches by body. So does a compiled
+training step (its state updated in place inside the graph, its dropout
+drawn from a generator registered with the capture).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
+from sd_video_gen_tpu_torch.config import Config
 from sd_video_gen_tpu_torch.diffusion.refine import make_denoise_refiner
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
 from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
@@ -24,8 +29,10 @@ from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
 from sd_video_gen_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from sd_video_gen_tpu_torch.ops.losses import LossWeights
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
 from sd_video_gen_tpu_torch.tools.bench_harness import launch_window
+from sd_video_gen_tpu_torch.train.trainer import make_train_step
 from sd_video_gen_tpu_torch.utils import jit as J
 
 
@@ -88,3 +95,47 @@ def test_one_compiled_predict_on_the_card_equals_eager(cuda):
     assert compiled_w.launches["flash_attention"] > 0
     assert compiled_w.gn_bodies == {"nhwc": compiled_w.launches[
         "groupnorm_silu"]}
+
+
+@pytest.mark.cuda
+def test_compiled_train_steps_on_the_card_equal_eager(cuda):
+    """A small f32 VAE-codec step with dropout on (K1 and K2 in the frozen
+    encode inside the graph): 3 compiled steps (the first the warm-up, then
+    replays of one graph) against 3 eager ones from the same weights:
+    loss components, parameters and both moments bit for bit, and a
+    replay's launches by body an eager step's."""
+    vae = build(AutoencoderKL, VAEConfig(block_out_channels=(32, 64),
+                                         layers_per_block=1,
+                                         norm_num_groups=8), cuda, seed=0)
+    codec = VAECodec(16, vae)
+    cfg = Config(lr=1e-3, batch_size=2, frames_per_clip=3,
+                 frames_to_predict=2, frame_size=16, dropout_p=0.1)
+    ft = FrameTransformerConfig(latent_dim=codec.latent_dim, dim_model=64,
+                                num_heads=4, num_encoder_layers=1,
+                                num_decoder_layers=2, dim_feedforward=64,
+                                dropout_p=0.1, frames_to_predict=2)
+    frames = [np.random.default_rng(s).integers(0, 256, (2, 3, 16, 16, 3),
+                                                dtype=np.uint8)
+              for s in range(3)]
+    runs = []
+    for eager in (False, True):
+        model = build(FrameTransformer, ft, cuda, seed=1, trainable=True)
+        init_fn, step_fn = make_train_step(
+            model, codec, LossWeights.from_config(cfg), cfg)
+        state = init_fn()
+        comps, windows = [], []
+        for f in frames:
+            with (J.disable_jit() if eager else contextlib.nullcontext()), \
+                    launch_window() as w:
+                comps.append(step_fn(state, f, 0)[1])
+            windows.append((w.launches, w.bodies, w.gn_bodies))
+        runs.append((comps, windows, state, step_fn))
+    (c_comps, c_win, c_state, c_fn), (e_comps, e_win, e_state, _) = runs
+    assert c_fn.impl.n_graphs == 1 and c_state.step == e_state.step == 3
+    for a, b in zip(c_comps, e_comps):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    sa, sb = c_state.state_dict(), e_state.state_dict()
+    for tree in ("params", "mu", "nu"):
+        assert all(torch.equal(v, sb[tree][k]) for k, v in sa[tree].items())
+    assert c_win == e_win and c_win[0][0]["flash_attention"] > 0
+    assert c_win[-1][2] == {"nhwc": c_win[-1][0]["groupnorm_silu"]}

@@ -151,8 +151,8 @@ def run_cli(root: str, name: str, mesh: bool = True):
             return out
         return run
 
-    def sharded(i3d, layout):
-        fn = real_stats(i3d, layout)
+    def sharded(features, layout):
+        fn = real_stats(features, layout)
 
         def run(v):
             st = fn(v)
