@@ -1,8 +1,10 @@
 """Drive the PyTorch port (``sd_video_gen_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--tune]
+    python3 chip_smoke.py --cards 4 [--runs NAME,...]
 
-Phases (any failure ends the run with a non-zero exit; there is no CPU path):
+Phases (any failure ends the run with a non-zero exit; there is no CPU path;
+``--cards 4`` runs phases 1, 2 and 11 only, phase 11 on four cards):
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    the CUDA kernels from csrc/ with nvcc, timed
@@ -159,10 +161,11 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               val; the
               encode's kernel shapes are held against the plain versions in
               f32 first); the same run again with ``--multihost
-              --num_processes 1`` (one NCCL group, so the step stays eager):
-              losses and the saved state bit-equal to the first run's,
-              which compiled its step and eval, one gradient all-reduce a
-              step; and a few ``--train_mode text`` steps from a labelled
+              --num_processes 1`` (one NCCL group, compiled: the step's
+              graph holds the gradient all-reduce): losses and the saved
+              state bit-equal to the first run's, both compiling their step
+              and eval, one gradient all-reduce a step; and a few
+              ``--train_mode text`` steps from a labelled
               cache of a seeded 101-class dataset, whose embedder must get
               the cache header's class of every served clip
  11. tp       tensor and data parallelism, rehearsed on the one card: each
@@ -175,14 +178,34 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
               data=1,model=4 --denoise`` on phase 9's files (1 predicted
               frame refined from DDIM step 48; 4 clips, whose 512px VAE mid
               block splits its batch over the ranks, and 3 clips, which
-              take the ring), predicted latents and frames;
+              take the ring), predicted latents and frames against the
+              one-process run in bf16 and in f32;
               ``predict_fvd.main --mesh data=4`` (``fvd_native_ar4``, one
               batch of 8 clips), FVD, MSE and the real clips' statistics;
               ``train/trainer.main --mesh data=2,model=2`` from phase 10's
               frame cache at the flagship's widths, f32, 2 steps at dropout
-              0 (losses and the gathered checkpoint against
-              one process) and 1 step at 0.1 (replicated parameters
-              bit-equal on every rank). Launches per rank exact (the ring's
+              0 (losses and the gathered checkpoint against one process)
+              and 1 step at dropout 0.1 (the replicated parameters bit-equal
+              on every rank).
+              Every worker program runs eagerly: the card's backend does
+              not capture over gloo, and the workers record their
+              signatures; no worker compiles (asserted). With ``--cards
+              4`` each worker takes its own card in an NCCL group and runs
+              its entry point compiled, then eagerly (bit for bit against
+              the compiled run, with equal launches, routes and
+              all-reduces; the step's graph holds the gradient
+              all-reduce); the one-process references compile on card 0
+              (the f32 predict references run too); the predict runs take
+              3 batches (12 clips in 4s, 9 in 3s); the train runs add a
+              data=4 run at 6 clips a card against one process on the 24,
+              and ``train_flagship`` at data=4 (bf16, dropout 0.1, 6 clips a
+              card, 3 epochs) against the same on one card; each run's
+              compiled, eager and one-card seconds and warm rates (null
+              where the window holds a compile or no warm step) are
+              printed, and JSON on the line before the last; ``--runs``
+              takes a subset of the runs by name (the build, models and
+              files only where a predict or FVD run needs them). Launches per
+              rank exact (the ring's
               calls run no kernel), every per-rank kernel signature held
               against the plain version in bf16 (not timed), the dtype of
               every rank path that reaches a kernel, on the body the paths
@@ -2207,7 +2230,7 @@ def timed_train_loops():
 def run_native_path(files, name, extra=()) -> tuple:
     """``train/trainer.main`` from the native cache; returns (the epoch's
     metrics, the launch window, train steps, batches served, the checkpoint's
-    path, the names of the programs it compiled)."""
+    path, the compile records of the programs it compiled, ``J.COMPILES``)."""
     argv = ["--dataset", "mnist", "--config", DATA_CONFIG, "--config_dir",
             files["dir"], "--native_cache", files["cache"], "--codec", "vae",
             "--precision", "bf16_full", "--checkpoint_dir",
@@ -2242,8 +2265,7 @@ def run_native_path(files, name, extra=()) -> tuple:
         f"{m['val_loss']:.6f}; checkpoint {ckpt}; collectives "
         f"{dict(multihost.COLLECTIVES)}")
     return m, window, steps, waited["batches"], \
-        os.path.join(files["checkpoints"], ckpt), \
-        sorted(c["name"] for c in J.COMPILES[n_compiles:])
+        os.path.join(files["checkpoints"], ckpt), J.COMPILES[n_compiles:]
 
 
 def _same_state(path_a, path_b) -> bool:
@@ -2322,8 +2344,9 @@ def run_text_path(files):
 
 def phase_data(workdir) -> dict:
     """The cache CLI, ``train_native_ucf_vae`` plain and under a one-process
-    NCCL group, and the text-mode path; returns the main path's
-    launches (the plain run's)."""
+    NCCL group (compiled too: its step's graph holds the gradient
+    all-reduce), and the text-mode path; returns the main path's launches
+    (the plain run's)."""
     t0 = time.perf_counter()
     files = data_files(workdir)
     clips = build_caches(files)
@@ -2364,36 +2387,57 @@ def phase_data(workdir) -> dict:
     losses = lambda m: {k: v for k, v in m.items() if k.endswith(("_train",
                                                                   "_val"))}
     same = losses(plain) == losses(group) and _same_state(ckpt_a, ckpt_b)
-    log(f"{name}_multihost: {backend} group of 1, eager (a process group's "
-        f"step is not captured): losses, parameters and moments "
+    names = lambda records: sorted(c["name"] for c in records)
+    in_graph = {c["name"]: c["graph_collectives"] for c in group_programs}
+    log(f"{name}_multihost: {backend} group of 1, compiled "
+        f"({names(group_programs)}; the all-reduces each graph holds "
+        f"{in_graph}): losses, parameters and moments "
         f"{'equal bit for bit' if same else 'DIFFER'} to the plain run's, "
-        f"compiled ({programs}); gradient all-reduces "
+        f"compiled ({names(programs)}); gradient all-reduces "
         f"{reduced.get('grads', 0)} for {steps} steps")
     if not same or backend != "nccl" or reduced.get("grads") != steps \
-            or set(programs) != {"eval_impl", "step_impl"} \
-            or group_programs:
+            or set(names(programs)) != {"eval_impl", "step_impl"} \
+            or set(names(group_programs)) != {"eval_impl", "step_impl"} \
+            or in_graph["step_impl"] != {"grads": 1}:
         raise AssertionError(f"{name}_multihost: same {same}, backend "
                              f"{backend}, collectives {reduced}, compiled "
-                             f"plain {programs}, group {group_programs}")
+                             f"plain {names(programs)}, group {in_graph}")
     run_text_path(files)
     log(f"data: {time.perf_counter() - t0:.1f} s")
     return counted(window)
 
 
 # The tp phase (phase 11): the three multi-process entry points as four
-# worker processes on the one card (this script again, ``--tp-worker``),
-# joined in a gloo group (NCCL refuses two ranks on one device; gloo stages
-# its collectives of CUDA tensors through host memory, the port's ring
-# exchange does so itself), each held against the same entry point in this
-# process. ``predict`` is ``predict_cli_denoise_ar4`` cut to 1 predicted
-# frame refined from DDIM step 48 (2 UNet calls instead of 10): 4 clips
-# (the VAE mid block's batch of 4 splits over the 4 ranks) and 3 clips (3
-# does not divide by 4: the 512px mid block takes the ring, 4096 / 4 = 1024
-# tokens a rank); ``fvd`` is ``fvd_native_ar4`` over the data axis, one
-# batch of 8 clips; ``train`` is ``train_flagship``'s model at published
-# widths from the data phase's frame cache, f32, 2 steps at dropout 0
-# and 1 at 0.1.
-TP_WORLD, TP_BACKEND = 4, "backend gloo (one card, host-staged)"
+# worker processes (this script again, ``--tp-worker``), each held against
+# the same entry point in this process. By default all four share the one
+# card, joined in a gloo group (NCCL refuses two ranks on one device; gloo
+# stages its collectives of CUDA tensors through host memory, the port's
+# ring exchange does so itself), and every program runs eagerly: the
+# card's backend does not capture over gloo (``jit``'s rule), and the
+# workers record their kernel signatures (``record_calls``). With
+# ``--cards 4`` each worker takes a card of its own in an NCCL group, runs
+# its entry point compiled (the collectives inside the graphs) and then
+# the same run eagerly under ``record_calls`` (the signatures, and the
+# comparison: bit for bit), and this process runs the one-process
+# references compiled on card 0 (the one-card times). ``predict`` is
+# ``predict_cli_denoise_ar4`` cut to 1 predicted frame refined from DDIM
+# step 48 (2 UNet calls instead of 10): batches of 4 clips (the VAE mid
+# block's batch of 4 splits over the 4 ranks) and of 3 clips (3 does not
+# divide by 4: the 512px mid block takes the ring, 4096 / 4 = 1024 tokens
+# a rank), one batch on one card, three on four (two timed after the
+# compile); ``fvd`` is ``fvd_native_ar4`` over the data axis, one batch of
+# 8 clips; ``train`` is ``train_flagship``'s model at published widths
+# from the data phase's frame cache, f32, 2 steps at dropout 0 and 1 at
+# 0.1 (the replicated parameters bit-equal across the ranks).
+# Four cards add two data=4 runs of that model from the same cache:
+# f32 at dropout 0, 6 clips a card, held against one process on the whole
+# batch of 24; and ``train_flagship`` itself (bf16 parameters and moments,
+# dropout 0.1, 6 clips a card), timed over 3 epochs of 3 steps against the
+# same Trainer at 6 clips on one card (its ranks' masks differ from one
+# process's, so it is held against eager and across its ranks only).
+TP_WORLD = 4
+TP_BACKEND = {1: "backend gloo (one card, host-staged), eager",
+              4: "backend nccl (four cards), compiled"}
 TP_PREDICT_PATH = dict(EVAL_PATHS[1], pred=1, refine=dict(
     EVAL_PATHS[1]["refine"], start_step=48))
 # one FVD batch; 2 train steps at dropout 0, 1 at dropout 0.1
@@ -2408,7 +2452,33 @@ TP_RUNS = [
     dict(name="tp_train_flagship", entry="train", mesh="data=2,model=2",
          config="tp_flagship"),
     dict(name="tp_train_flagship_dropout", entry="train",
-         mesh="data=2,model=2", config="tp_flagship_dropout")]
+         mesh="data=2,model=2", config="tp_flagship_dropout", one=False)]
+# The configs of the train runs: tp_flagship's batch of 6 (2 steps at
+# dropout 0) and tp_flagship_dropout's (1 step at 0.1); on four cards
+# tp_data4's 24 (3 steps at dropout 0) and flagship_data4's 24 (3 epochs of
+# 3 steps, train_flagship's precision and dropout), whose one-card
+# reference is flagship_one, the same at 6.
+TP_CONFIGS = {
+    "tp_flagship": dict(EPOCH_RATIO=[TP_EPOCH_RATIO[0.0]], DROPOUT_P=[0.0]),
+    "tp_flagship_dropout": dict(EPOCH_RATIO=[TP_EPOCH_RATIO[0.1]],
+                                DROPOUT_P=[0.1]),
+    "tp_data4": dict(BATCH_SIZE=[24], DROPOUT_P=[0.0]),
+    "flagship_data4": dict(BATCH_SIZE=[24], EPOCHS=[3]),
+    "flagship_one": dict(EPOCHS=[3], EPOCH_RATIO=[0.24])}
+TP_CARD_RUNS = [
+    dict(TP_RUNS[0], clips=12, batch=4),
+    dict(TP_RUNS[1], clips=9, batch=3),
+    *TP_RUNS[2:],
+    dict(name="tp_train_data4", entry="train", mesh="data=4",
+         config="tp_data4"),
+    dict(name="train_flagship_data4", entry="train", mesh="data=4",
+         config="flagship_data4", one_config="flagship_one",
+         precision="bf16_full", one=False)]
+# the programs each entry point compiles at least (four cards; a train run
+# compiles ``eval_impl`` too where its split has a validation batch)
+TP_PROGRAMS = {"predict": {"predict_impl", "decode_impl"},
+               "fvd": {"predict_impl", "decode_impl", "features"},
+               "train": {"step_impl"}}
 # Bounds against the one-process run of the same entry point on the card.
 # predict (bf16): each split layer's output is the sum of bf16 partial
 # products, rounded once more per rank, so the run's bf16 rounding differs
@@ -2435,29 +2505,42 @@ TP_FVD_RTOL, TP_MSE_RTOL = 5e-2, 2e-2
 TP_LOSS_RTOL, TP_MOMENT_REL_L2, TP_LAST_MOMENT_REL_L2 = 1e-4, 1e-4, 5e-2
 
 
-def tp_argv(run, files, data_dir) -> list:
-    """The entry point's command line; the mesh comes on top."""
+def _axes(run) -> dict:
+    axes = {"data": 1, "model": 1}
+    axes.update({k: int(v) for k, v in (a.split("=")
+                                        for a in run["mesh"].split(","))})
+    return axes
+
+
+def tp_argv(run, files, data_dir, one=False) -> list:
+    """The entry point's command line; the mesh comes on top. ``one``: the
+    one-process reference's (its own config where the run names one)."""
     if run["entry"] == "predict":
-        return eval_argv(files, TP_PREDICT_PATH, clips=run["clips"]) + [
+        path = dict(TP_PREDICT_PATH,
+                    batch_clips=run.get("batch", TP_PREDICT_PATH[
+                        "batch_clips"]))
+        return eval_argv(files, path, clips=run["clips"]) + [
             "--denoise_start_step",
             str(TP_PREDICT_PATH["refine"]["start_step"])]
     if run["entry"] == "fvd":
         return eval_argv(files, EVAL_PATHS[0], clips=TP_FVD_CLIPS)
-    return ["--dataset", "mnist", "--config", run["config"], "--config_dir",
+    config = run.get("one_config", run["config"]) if one else run["config"]
+    return ["--dataset", "mnist", "--config", config, "--config_dir",
             data_dir, "--native_cache", os.path.join(data_dir, "frame_cache"),
-            "--codec", "pixel", "--precision", "f32", "--checkpoint_dir",
-            os.path.join(os.getcwd(), "checkpoints"), "--debug", "True"]
+            "--codec", "pixel", "--precision", run.get("precision", "f32"),
+            "--checkpoint_dir", os.path.join(os.getcwd(), "checkpoints"),
+            "--debug", "True"]
 
 
-def tp_entry(run, argv):
+def tp_entry(run, argv, compiled=False):
     """Drive ``run``'s entry point in this process with spies on what it
-    computes: (its return value, what the spies saw). Eager
-    (``disable_jit``), as every rank of a sharded run is: the spies copy
-    what they see to the host between the ops, which a capture cannot
-    hold."""
+    computes: (its return value, what the spies saw). The spies sit outside
+    the compiled programs (around the predictor, the decode, the sharded
+    statistics and the step's host part), so ``compiled`` runs it as a user
+    would; else eagerly (``disable_jit``)."""
     from sd_video_gen_tpu_torch.evaluation import predict_fvd as PPF
     seen = collections.defaultdict(list)
-    real = (P.make_predict_fn, P.build_codec, PPF.make_sharded_features,
+    real = (P.make_predict_fn, P.make_decode_fn, PPF.make_sharded_features,
             Trainer.fit)
 
     def make(*a, **kw):
@@ -2469,16 +2552,14 @@ def tp_entry(run, argv):
             return out
         return run_
 
-    def codec(*a, **kw):
-        c = real[1](*a, **kw)
-        decode = c.decode_latents
+    def decoder(*a, **kw):
+        decode = real[1](*a, **kw)
 
         def dec(x):
             out = decode(x)
             seen["frames"].append(out.cpu())
             return out
-        c.decode_latents = dec
-        return c
+        return dec
 
     def stats(features, layout):
         fn = real[2](features, layout)
@@ -2507,16 +2588,16 @@ def tp_entry(run, argv):
             return state, comps
         self._step_fn = step
         return real[3](self, *a, **kw)
-    P.make_predict_fn, P.build_codec = make, codec
+    P.make_predict_fn, P.make_decode_fn = make, decoder
     PPF.make_sharded_features, Trainer.fit = stats, fit
     try:
         with contextlib.redirect_stdout(io.StringIO()) as out, \
-                J.disable_jit():
+                (contextlib.nullcontext() if compiled else J.disable_jit()):
             main = {"predict": P.main, "fvd": PPF.main,
                     "train": T.main}[run["entry"]]
             ret = main(argv)
     finally:
-        P.make_predict_fn, P.build_codec = real[:2]
+        P.make_predict_fn, P.make_decode_fn = real[:2]
         PPF.make_sharded_features, Trainer.fit = real[2:]
     seen["lines"] = out.getvalue().splitlines()
     return ret, seen
@@ -2540,56 +2621,86 @@ def _train_result(ret, seen) -> dict:
                          for k, p in trainer.state.params.items()})
 
 
-def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
-    """One rank of a tp run: joins the gloo group on this card (LOCAL_RANK
-    is 0 in every worker), drives the entry point under the mesh with the
-    counts at 0, and saves what it saw, its launches and the kernel
-    signatures it handed the dispatchers."""
+def tp_run(run, argv, compiled=False, signatures=False) -> dict:
+    """``run``'s entry point in this process inside one launch window,
+    compiled or eagerly, its kernel signatures recorded where asked (which
+    makes every program eager): its results, seconds, launches by body,
+    routes, all-reduces, compiles, train loops' walls."""
     from sd_video_gen_tpu_torch.ops.attention import TP_ROUTES
-    strict_f32()
-    with open(job) as f:
-        run, argv = json.load(f)
-    multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
-                         device="cuda", backend="gloo")
-    if multihost.rank_device(torch.device("cuda")) != torch.device("cuda", 0):
-        raise AssertionError("a worker left the one card")
-    argv = argv + ["--mesh", run["mesh"]]
-    TP_ROUTES.clear()
+    n_compiles = len(J.COMPILES)
+    J.RULED_EAGER.clear()
     t0 = time.perf_counter()
-    with launch_window() as window, _kernels.record_calls() as rec:
-        ret, seen = tp_entry(run, argv)
+    with timed_train_loops() as walls, launch_window() as window, \
+            (_kernels.record_calls() if signatures
+             else contextlib.nullcontext()) as rec:
+        ret, seen = tp_entry(run, argv, compiled)
     res = dict(seconds=time.perf_counter() - t0, launches=window.launches,
                bodies=window.bodies, gn_bodies=window.gn_bodies,
-               routes=dict(TP_ROUTES), sigs=dict(rec.calls),
-               backend=torch.distributed.get_backend(), lines=seen["lines"])
+               calls=window.calls, routes=dict(TP_ROUTES),
+               collectives=dict(multihost.COLLECTIVES),
+               compiles=[{k: c[k] for k in ("name", "graph_collectives",
+                                            "graph_routes")}
+                         for c in J.COMPILES[n_compiles:]],
+               ruled_eager=dict(J.RULED_EAGER), walls=walls,
+               sigs=dict(rec.calls) if signatures else {},
+               lines=seen.pop("lines"))
     if run["entry"] == "train":
         res.update(_train_result(ret, seen))
     else:
-        res.update(ret=ret, **{k: v for k, v in seen.items()
-                               if k != "lines"})
+        res.update(ret=ret, **seen)
+    return res
+
+
+def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
+    """One rank of a tp run: joins the group (gloo on the one card, or NCCL
+    on its own card of four), drives the entry point under the mesh with the
+    counts at 0, and saves what it saw, its launches and the kernel
+    signatures it handed the dispatchers (four cards: the compiled run, and
+    the eager one under ``eager``)."""
+    strict_f32()
+    with open(job) as f:
+        run, argv, cards = json.load(f)
+    multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
+                         device="cuda",
+                         backend="gloo" if cards == 1 else "nccl")
+    card_ = torch.device("cuda", 0 if cards == 1 else int(rank))
+    if multihost.rank_device(torch.device("cuda")) != card_:
+        raise AssertionError(f"rank {rank} is not on {card_}")
+    argv = argv + ["--mesh", run["mesh"]]
+    group = torch.distributed.group.WORLD
+    res = dict(backend=torch.distributed.get_backend(),
+               captures_over=J.BACKEND.captures_over(group))
+    if cards == 1:
+        res.update(tp_run(run, argv, signatures=True))
+    else:
+        res.update(tp_run(run, argv, compiled=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["eager"] = tp_run(run, argv, signatures=True)
     torch.save(res, out)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def run_tp_workers(run, argv, workdir) -> list:
-    """``run`` as TP_WORLD worker processes on the one card; their results
-    by rank. A worker that fails or outlives TP_TIMEOUT ends the phase,
-    every worker stopped."""
+def run_tp_workers(run, argv, workdir, cards) -> list:
+    """``run`` as TP_WORLD worker processes on ``cards`` cards; their
+    results by rank. A worker that fails or outlives TP_TIMEOUT ends the
+    phase, every worker stopped."""
     job = os.path.join(workdir, f"{run['name']}.json")
     with open(job, "w") as f:
-        json.dump([run, argv], f)
+        json.dump([run, argv, cards], f)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, LOCAL_RANK="0")
     outs = [os.path.join(workdir, f"{run['name']}_rank{r}.pt")
             for r in range(TP_WORLD)]
     logs = [open(os.path.join(workdir, f"{run['name']}_rank{r}.log"), "w")
             for r in range(TP_WORLD)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
-         str(TP_WORLD), str(port), job, outs[r]], env=env, stdout=logs[r],
+         str(TP_WORLD), str(port), job, outs[r]],
+        env=dict(os.environ, LOCAL_RANK=str(r if cards > 1 else 0),
+                 NCCL_SOCKET_IFNAME="lo"), stdout=logs[r],
         stderr=subprocess.STDOUT, cwd=workdir) for r in range(TP_WORLD)]
     end = time.monotonic() + TP_TIMEOUT
     try:
@@ -2622,11 +2733,11 @@ def check_tp_predict(run, ranks, one, one32, expected) -> None:
     bf16 and f32; launches per rank exact (the ring's calls run no kernel),
     the route."""
     cat = lambda res, k: torch.cat(res[k]).float()
-    floor = {k: _rel(cat(one, k), cat(one32, k)) for k in ("latents",
-                                                           "frames")}
+    keys = ("latents", "frames")
+    floor = {k: _rel(cat(one, k), cat(one32, k)) for k in keys}
     for r, res in enumerate(ranks):
-        got = {k: _rel(cat(res, k), cat(one32, k)) for k in floor}
-        same = {k: _rel(cat(res, k), cat(one, k)) for k in floor}
+        got = {k: _rel(cat(res, k), cat(one32, k)) for k in keys}
+        same = {k: _rel(cat(res, k), cat(one, k)) for k in keys}
         log(f"{run['name']}: rank {r}, rel L2 against one process in f32 "
             f"(one process in bf16 / this rank): predicted latents "
             f"{floor['latents']:.3e} / {got['latents']:.3e}, decoded frames "
@@ -2634,7 +2745,7 @@ def check_tp_predict(run, ranks, one, one32, expected) -> None:
             f"{TP_PREDICT_OVER_BF16}x the first); against one process in "
             f"bf16: {same['latents']:.3e}, {same['frames']:.3e}; routes "
             f"{res['routes']}")
-        if not all(got[k] <= TP_PREDICT_OVER_BF16 * floor[k] for k in got):
+        if not all(got[k] <= TP_PREDICT_OVER_BF16 * floor[k] for k in keys):
             raise AssertionError(f"{run['name']}: rank {r} disagrees")
         if res["routes"].get(run["route"], 0) == 0:
             raise AssertionError(f"{run['name']}: the {run['route']} route "
@@ -2684,17 +2795,18 @@ def _states(path_a, path_b):
 
 
 def check_tp_train(run, ranks, one, lr: float) -> None:
-    """Losses and the gathered state against one process (dropout 0), or
-    the replicated parameters bit-equal across the model ranks (dropout
-    on)."""
+    """The replicated parameters bit-equal across the ranks (with a model
+    axis, the split ones each its own); with ``one``, the losses and the
+    gathered state against one process (dropout 0)."""
     digests = [res["digests"] for res in ranks]
     whole = [k for k, (_, split) in digests[0].items() if not split]
     same = all(d[k][0] == digests[0][k][0] for d in digests for k in whole)
     split = [k for k, (_, s) in digests[0].items() if s]
+    model = _axes(run)["model"]
     log(f"{run['name']}: {len(whole)} replicated parameters "
         f"{'bit-equal' if same else 'DIFFER'} on all {TP_WORLD} ranks, "
         f"{len(split)} split over the model axis")
-    if not same or not split:
+    if not same or bool(split) != (model > 1):
         raise AssertionError(f"{run['name']}: replicated parameters drift")
     for res in ranks:
         _check_worker_launches(run, 0, res, {k: 0 for k in KERNELS})
@@ -2702,7 +2814,6 @@ def check_tp_train(run, ranks, one, lr: float) -> None:
         return
     # a step's components are each data rank's own (its rows' means):
     # their mean is the global batch's (equal rows), one per model group
-    model = int(dict(a.split("=") for a in run["mesh"].split(","))["model"])
     by_data = [res["steps"] for res in ranks[::model]]
     got = [{k: sum(d[i][k] for d in by_data) / len(by_data) for k in w}
            for i, w in enumerate(one["steps"][:len(by_data[0])])]
@@ -2737,17 +2848,108 @@ def check_tp_train(run, ranks, one, lr: float) -> None:
         raise AssertionError(f"{run['name']}: the gathered state differs")
 
 
-def phase_tp(models, files, data_dir, workdir) -> dict:
-    """The tp runs, each against its one-process run; every per-rank kernel
-    signature against the plain version; returns the workers' launches."""
+def _same_run(run, a, b) -> bool:
+    """A rank's compiled run against its eager one, bit for bit: what the
+    entry point returned and what the spies saw."""
+    eq = lambda x, y: (torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                       if isinstance(x, (torch.Tensor, np.ndarray))
+                       else x == y)
+    if run["entry"] == "train":
+        return a["steps"] == b["steps"] and a["digests"] == b["digests"]
+    keys = ("latents", "frames") + (("stats",) if run["entry"] == "fvd"
+                                    else ())
+    return (all(len(a[k]) == len(b[k]) and all(
+        all(map(eq, x, y)) if isinstance(x, tuple) else eq(x, y)
+        for x, y in zip(a[k], b[k])) for k in keys)
+        and (run["entry"] != "fvd" or a["ret"] == b["ret"]))
+
+
+def check_tp_compiled(run, ranks) -> None:
+    """Four cards: every rank compiled its entry point's programs (none
+    eager by the backend's rule), its collectives inside the step's graph;
+    its compiled run equals its eager run bit for bit, with equal launches,
+    routes and all-reduces."""
+    want = TP_PROGRAMS[run["entry"]]
+    for r, res in enumerate(ranks):
+        eager = res["eager"]
+        names = {c["name"] for c in res["compiles"]}
+        steps = [c["graph_collectives"] for c in res["compiles"]
+                 if c["name"] == "step_impl"]
+        grads = {"grads": 1} if _axes(run)["data"] > 1 else {}
+        same = _same_run(run, res, eager)
+        if run["entry"] == "train" and r == 0:
+            compiled_state, eager_state = _states(res["checkpoint"],
+                                                  eager["checkpoint"])
+            same = same and all(torch.equal(v, eager_state[t][k])
+                                for t in ("params", "mu", "nu")
+                                for k, v in compiled_state[t].items())
+        log(f"{run['name']}: rank {r} compiled {sorted(names)} (the step's "
+            f"graph all-reduces {steps}), against its eager run: "
+            f"{'equal bit for bit' if same else 'DIFFERENT'}; launches "
+            f"{res['launches']} / {eager['launches']}, routes "
+            f"{res['routes']} / {eager['routes']}, all-reduces "
+            f"{res['collectives']} / {eager['collectives']}")
+        if (res["backend"] != "nccl" or not res["captures_over"]
+                or not want <= names or res["ruled_eager"]
+                or eager["compiles"] or not same
+                or any(s != grads for s in steps)
+                or res["launches"] != eager["launches"]
+                or res["routes"] != eager["routes"]
+                or res["collectives"] != eager["collectives"]):
+            raise AssertionError(
+                f"{run['name']}: rank {r}: backend {res['backend']}, "
+                f"compiled {sorted(names)} (at least {sorted(want)}), eager "
+                f"by the rule {res['ruled_eager']}, the eager run compiled "
+                f"{eager['compiles']}, equal {same}, the step's graph "
+                f"all-reduces {steps} (want {grads} each)")
+
+
+def _rates(run, res):
+    """The run's warm rate, where its entry point gives one: predicted
+    frames a second after the first batch (the predict CLI's timing line),
+    or optimizer steps a second over the epochs after the first (else
+    after the first step); None where there is no such window (one batch,
+    one step, the FVD CLI) or where it holds a compile (a compiled predict
+    run compiles its decode after the first batch's rollout)."""
+    if run["entry"] == "predict":
+        timing = [json.loads(x) for x in res["lines"]
+                  if x.startswith("{") and '"stage_s"' in x]
+        if not timing:
+            raise AssertionError(f"{run['name']}: no timing line")
+        (t,) = timing
+        frames = (t["clips"] - run.get("batch", t["clips"])) * t[
+            "pred_frames_per_clip"]
+        warm = t["total_s"] - t["first_sync_s"]
+        if not frames or res["compiles"]:
+            return None
+        return f"{frames / warm:.4f} frames/s warm ({frames} frames in " \
+               f"{warm:.3f} s)"
+    if run["entry"] == "train":
+        walls = res["walls"]
+        if len(walls) > 1:
+            steps = sum(w[1] for w in walls[1:])
+            secs = sum(w[0] for w in walls[1:])
+        else:
+            (_, n, secs), = walls
+            steps = n - 1
+        return (f"{steps / secs:.4f} steps/s ({steps} steps in {secs:.3f} s)"
+                if steps else None)
+    return None
+
+
+def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
+    """The tp runs (``runs``, by default all of the mode's), each against
+    its one-process run; every per-rank kernel signature against the plain
+    version; returns the workers' launches and a table of each run's
+    times."""
     t0 = time.perf_counter()
-    for name, p in (("tp_flagship", 0.0), ("tp_flagship_dropout", 0.1)):
+    for name, extra in TP_CONFIGS.items():
         write_config(os.path.join(data_dir, name + ".yml"),
-                     dict(DATA_YML, EPOCH_RATIO=[TP_EPOCH_RATIO[p]],
-                          DROPOUT_P=[p]))
+                     dict(DATA_YML, **extra))
     total = {k: 0 for k in KERNELS}
     sigs = collections.Counter()
-    for run in TP_RUNS:
+    table = {}
+    for run in runs or (TP_RUNS if cards == 1 else TP_CARD_RUNS):
         d = os.path.join(workdir, run["name"])
         os.makedirs(d)
         with contextlib.chdir(d):
@@ -2755,41 +2957,59 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
             one = one32 = None
             if run["entry"] == "predict":
                 with launch_window():
-                    one32 = dict(zip(("ret", "seen"), tp_entry(
-                        run, argv + ["--denoise_precision", "f32"])))["seen"]
-            if run["name"] != "tp_train_flagship_dropout":
-                t1 = time.perf_counter()
-                with launch_window():
-                    ret, seen = tp_entry(run, argv)
-                one = (_train_result(ret, seen) if run["entry"] == "train"
-                       else dict(ret=ret, **seen))
-                one_s = time.perf_counter() - t1
+                    one32 = tp_entry(run, argv + ["--denoise_precision",
+                                                  "f32"])[1]
+            if run.get("one", True) or "one_config" in run:
+                one = tp_run(run, tp_argv(run, files, data_dir, one=True),
+                             compiled=cards > 1)
                 gc.collect()
                 torch.cuda.empty_cache()
-            ranks = run_tp_workers(run, argv, d)
-        secs = max(r["seconds"] for r in ranks)
-        log(f"{run['name']}: --mesh {run['mesh']}, {TP_WORLD} ranks on one "
-            f"card: {secs:.1f} s a rank" + (f", one process {one_s:.1f} s"
-                                             if one is not None else "")
-            + f" ({TP_BACKEND})")
-        if any(r["backend"] != "gloo" for r in ranks):
-            raise AssertionError(f"{run['name']}: not a gloo group")
+            ranks = run_tp_workers(run, argv, d, cards)
+        worst = lambda key: max(r[key]["seconds"] if key else r["seconds"]
+                                for r in ranks)
+        row = {"mesh": run["mesh"], "cards": cards,
+               "rank_s": round(worst(None), 3),
+               "rate": _rates(run, ranks[0])}
+        if cards > 1:
+            row.update(eager_rank_s=round(worst("eager"), 3),
+                       eager_rate=_rates(run, ranks[0]["eager"]))
+        if one is not None:
+            row.update(one_s=round(one["seconds"], 3),
+                       one_rate=_rates(run, one))
+        table[run["name"]] = row
+        log(f"{run['name']}: --mesh {run['mesh']}, {TP_WORLD} ranks on "
+            f"{cards} card(s), {TP_BACKEND[cards]}: {row}")
+        if any(r["backend"] != ("gloo" if cards == 1 else "nccl")
+               for r in ranks):
+            raise AssertionError(f"{run['name']}: not the group asked for")
+        if cards == 1:
+            # the card's backend does not capture over gloo: no graph
+            if any(r["captures_over"] or r["compiles"] for r in ranks):
+                raise AssertionError(f"{run['name']}: a gloo worker "
+                                     f"compiled a program")
+        else:
+            check_tp_compiled(run, ranks)
+        checked = one if run.get("one", True) else None
         if run["entry"] == "predict":
-            expected = expected_launches(models, TP_PREDICT_PATH, 1)
-            check_tp_predict(run, ranks, one, one32, expected)
+            batches = -(-run["clips"] // run.get("batch", TP_PREDICT_PATH[
+                "batch_clips"]))
+            expected = expected_launches(models, TP_PREDICT_PATH, batches)
+            check_tp_predict(run, ranks, checked, one32, expected)
         elif run["entry"] == "fvd":
             # each rank runs every pass of the path on its slice
-            check_tp_fvd(run, ranks, one,
+            check_tp_fvd(run, ranks, checked,
                          expected_launches(models, EVAL_PATHS[0],
                                            TP_FVD_CLIPS // EVAL_PATHS[0][
                                                "batch_clips"]))
         else:
-            check_tp_train(run, ranks, one, DATA_YML["LR"][0])
+            check_tp_train(run, ranks, checked, DATA_YML["LR"][0])
             # the f32 flagship's whole states (5.3 GB each) leave the disk
-            for res in ranks[:1] + ([one] if one else []):
-                shutil.rmtree(res["checkpoint"])
+            for res in [ranks[0], ranks[0].get("eager"), one]:
+                if res is not None:
+                    shutil.rmtree(res["checkpoint"])
         for res in ranks:
-            sigs.update(res["sigs"])
+            eager = res["eager"] if cards > 1 else res
+            sigs.update(eager["sigs"])
             BODY_LAUNCHES.update(res["bodies"])
             for k in KERNELS:
                 total[k] += res["launches"][k]
@@ -2801,8 +3021,8 @@ def phase_tp(models, files, data_dir, workdir) -> dict:
                             nchw=False, timing=False)
     log(f"tp: {len(rows)} kernel rows at the per-rank shapes agree; "
         f"launches of the {TP_WORLD}-rank runs {total}; "
-        f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND})")
-    return total
+        f"{time.perf_counter() - t0:.1f} s ({TP_BACKEND[cards]})")
+    return total, table
 
 
 # The quality phase (phase 12): the port's two quality tools at their
@@ -3224,6 +3444,12 @@ def main() -> int:
     parser.add_argument("--tune", action="store_true",
                         help="also time the GroupNorm NHWC body's modes at "
                              "every shape of the 512px refiner paths")
+    parser.add_argument("--cards", type=int, default=1, choices=(1, 4),
+                        help="4: only the device, build and tp phases, the "
+                             "tp workers on four cards over NCCL, compiled")
+    parser.add_argument("--runs", type=lambda v: v.split(","),
+                        help="with --cards 4: only these tp runs, by name "
+                             "(comma-separated)")
     parser.add_argument("--tp-worker", nargs=5, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3233,6 +3459,8 @@ def main() -> int:
     if args.tp_worker:
         return tp_worker(*args.tp_worker)
     strict_f32()
+    if args.cards > 1:
+        return main_cards(args.cards, args.runs)
     t0 = time.perf_counter()
 
     def mark(name):
@@ -3281,7 +3509,7 @@ def main() -> int:
             tp_dir = os.path.join(workdir, "tp")
             os.makedirs(tp_dir)
             mark("tp")
-            tp_launches = phase_tp(models, files, data_dir, tp_dir)
+            tp_launches, _ = phase_tp(models, files, data_dir, tp_dir)
             quality_launches = phase_quality(models, workdir)
             # one 8-stream DDIM batch at 512px: the launches do not depend
             # on the batch
@@ -3323,6 +3551,57 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
          **summary[k]} for k in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_cards(cards: int, names=None) -> int:
+    """``--cards 4``: the device, build and tp phases, the tp runs over
+    NCCL on four cards (the files they read made as the default run makes
+    them; ``names``: only those runs, and the models and files only where
+    a predict or FVD run reads them); the runs' times as JSON on the line
+    before the last."""
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --cards {cards} needs {cards} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    runs = [r for r in TP_CARD_RUNS if names is None or r["name"] in names]
+    if names is not None and len(runs) != len(set(names)):
+        print(f"chip_smoke: --runs: not all of {sorted(names)} are among "
+              f"{[r['name'] for r in TP_CARD_RUNS]}", file=sys.stderr)
+        return 1
+    evals = any(r["entry"] != "train" for r in runs)
+    t0 = time.perf_counter()
+    phase_device()
+    with tempfile.TemporaryDirectory(prefix="sdvg") as workdir:
+        eval_dir = os.path.join(workdir, "eval")
+        os.makedirs(eval_dir)
+        sd_files = start_sd_weight_files(eval_dir) if evals else None
+        try:
+            phase_build()
+            models = files = None
+            if evals:
+                models = mode_models(full_width_models(), FLAGSHIP)
+                files = eval_files(models, eval_dir)
+            data_dir = os.path.join(workdir, "data")
+            os.makedirs(data_dir)
+            build_caches(data_files(data_dir))
+            if evals and sd_files.wait(timeout=600) != 0:
+                raise RuntimeError(f"the SD weight files were not written: "
+                                   f"exit {sd_files.returncode}")
+            tp_dir = os.path.join(workdir, "tp")
+            os.makedirs(tp_dir)
+            log(f"phase tp: starts at {time.perf_counter() - t0:.1f} s")
+            launches, table = phase_tp(models, files, data_dir, tp_dir,
+                                       cards, runs)
+        finally:
+            if sd_files is not None and sd_files.poll() is None:
+                sd_files.kill()
+                sd_files.wait()
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cards": cards, "launches": launches, "runs": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

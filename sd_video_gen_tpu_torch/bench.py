@@ -321,7 +321,7 @@ def _training(path: dict, sizes: Sizes, device, batch: int | None = None
         flash_body="tf32x3", probe=lambda: steps(1),
         probe_per_request=H.TRAIN_TIMED,
         reset=lambda: trainer.state.load_state_dict(start),
-        program=trainer._step_fn.impl if trainer.compiled else None,
+        program=trainer._step_fn.impl,
         keep=dict(trainer=trainer, workdir=workdir, path=path),
         analytic_flops=analytic)
 

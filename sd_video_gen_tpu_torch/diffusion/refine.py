@@ -25,6 +25,11 @@ in the warm-up, and every later request, compiled or eager, gets the same
 tensor. A data-parallel caller wraps the noise in ``windowed_noise``: each
 process draws the whole global batch's noise once and keeps its rows, so
 the run refines every clip with the noise a single process would give it.
+The whole draw is taken once per (step, batch size) and the rows are a view
+of it, so a graph captured for one window reads that window's rows for
+good: a compiled request keys on the window (``BatchWindow.key``, an
+argument of ``predict/predict.make_predict_fn``'s program), and a batch
+with other rows, or another batch size, gets a graph of its own.
 """
 
 from __future__ import annotations
@@ -79,6 +84,11 @@ class BatchWindow:
 
     def set(self, lo: int, hi: int, n: int) -> None:
         self.lo, self.hi, self.n = lo, hi, n
+
+    def key(self) -> tuple[int, int, int]:
+        """``(lo, hi, n)``: what the noise of a batch depends on beyond
+        its shape, so part of a compiled request's key."""
+        return self.lo, self.hi, self.n
 
 
 def windowed_noise(noise_fn: Callable, window: BatchWindow) -> Callable:

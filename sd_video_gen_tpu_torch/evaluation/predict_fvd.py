@@ -23,11 +23,11 @@ the end, with the pixel MSE of the predicted frames. I3D runs in full f32
 walls with the device synchronised at their ends (on the card, with the
 spans between CUDA events around each).
 
-In a run of one process the JAX CLI's three jitted programs are compiled
-(``utils/jit.py``: one CUDA graph per batch shape on the card, the ragged
-last batch another): the predictor (``predict_impl``), the decode
-(``decode_impl``) and I3D (``features``, ``fvd.jitted_features``); the
-statistics merge on the host in f64 after each replay.
+The JAX CLI's three jitted programs are compiled (``utils/jit.py``: one
+CUDA graph per batch shape on the card, the ragged last batch another):
+the predictor (``predict_impl``), the decode (``decode_impl``) and I3D
+(``features``, ``fvd.jitted_features``); the statistics merge on the host
+in f64 after each replay.
 
 Across processes (``--multihost``, or torchrun; one per device), laid out
 by ``--mesh`` (``parallel/mesh.py``; the streaming API only, as in the JAX
@@ -36,9 +36,11 @@ and the ``FeatureStats`` sums and the MSE sums are summed over the ``data``
 group (``make_sharded_features``, the JAX package's shard_map + psum); a
 ragged tail batch is trimmed to a multiple of the data axis. The refiner's
 noise is drawn for the whole batch and cut to the rank's rows, as in the
-predict CLI; the refiner is not split over a model axis (nor is it in the
-JAX CLI). Such a run stays eager, as ``predict.main``'s does. Rank 0 alone
-prints.
+predict CLI (the rows join the predictor's key); the refiner is not split
+over a model axis (nor is it in the JAX CLI). So no collective runs inside
+a program: each rank compiles its own, and the f64 sums meet on the host
+after I3D's replay, as the JAX package's ``psum`` ends its ``shard_map``.
+Rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -55,8 +57,7 @@ from sd_video_gen_tpu_torch.config import (build_arg_parser, load_config,
                                            strict_f32)
 from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats, compute_fvd,
                                                    frechet_distance,
-                                                   jitted_features,
-                                                   preprocess_videos)
+                                                   jitted_features)
 from sd_video_gen_tpu_torch.models import default_device
 from sd_video_gen_tpu_torch.models.i3d import (I3DConfig, InceptionI3d,
                                                convert_i3d)
@@ -167,9 +168,6 @@ def main(argv=None):
             f"({args.pred_frames}) = {total} < 9, the I3D temporal minimum "
             "— raise --pred_frames or use a config with longer clips")
     layout = join_run(parser, args)
-    # one process: the predictor, the decode and I3D compiled (the JAX
-    # CLI's jitted programs); a mesh stays eager, as in predict.main
-    compiled = layout.data * layout.model == 1
     # the JAX CLI shards only the batch: the refiner stays whole
     layout = dataclasses.replace(layout, model=1, model_rank=0,
                                  model_group=None)
@@ -195,11 +193,10 @@ def main(argv=None):
                               window=cfg.frames_per_clip, mode=naive_mode,
                               refiner=refiner,
                               future_horizon=cfg.frames_to_predict,
-                              compiled=compiled)
-    decode = make_decode_fn(codec, compiled)
+                              rows=window)
+    decode = make_decode_fn(codec)
     embedder = build_embedder(args, device)
-    features = (jitted_features(i3d) if compiled
-                else lambda v: i3d(preprocess_videos(v)))
+    features = jitted_features(i3d)
     stats = make_sharded_features(features, layout)
 
     def gen_video(context_frames, indices):

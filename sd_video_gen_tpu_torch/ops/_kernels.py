@@ -14,7 +14,8 @@ test suite imports every module without ``nvcc``.
 show which kernels its main path went through. ``CALLS`` counts dispatcher
 calls by kernel name, kernel or plain version (``record``). A CUDA graph
 replay runs no wrapper: ``utils/jit.py`` keeps the counts a capture saw
-(``counters``) with its graph and adds them once per replay.
+(``counters``: these, and the collectives and tensor-parallel routes a
+sharded program counts) with its graph and adds them once per replay.
 
 ``force_reference`` sends every dispatcher of this package (``attention``,
 ``group_norm``) to its plain version at once: the on-card comparison of a
@@ -58,11 +59,15 @@ def count_launch(name: str) -> None:
 
 
 def counters() -> list:
-    """Every launch counter of the package: ``LAUNCHES``, ``CALLS`` and both
-    dispatchers' launches by body."""
+    """Every host counter a compiled program's replay must move as its
+    eager run would: ``LAUNCHES``, ``CALLS``, both dispatchers' launches by
+    body, the all-reduces (``multihost.COLLECTIVES``) and the sharded
+    attention's routes (``attention.TP_ROUTES``)."""
     from sd_video_gen_tpu_torch.ops import attention, groupnorm
+    from sd_video_gen_tpu_torch.parallel import multihost
     return [LAUNCHES, CALLS, attention.ROUTE_LAUNCHES,
-            groupnorm.ROUTE_LAUNCHES]
+            groupnorm.ROUTE_LAUNCHES, multihost.COLLECTIVES,
+            attention.TP_ROUTES]
 
 
 class force_reference:

@@ -21,10 +21,13 @@ carry (``parallel/mesh.py``): there is no trace-time context.
 
 The first two are ``torch.autograd.Function``s, so training runs through
 them (the FrameTransformer's model axis, ``train/trainer.py``); the rest
-serve the frozen diffusion models. gloo takes CUDA tensors in its
-collectives but not in its point-to-point operations, so ``ring_shift``
-stages through host memory where the group is gloo and the tensor is on a
-card, and only there (NCCL, the card's default, takes them as they are).
+serve the frozen diffusion models. Over NCCL, the card's default, every one
+of them is device work with no host sync (``ring_shift``'s send, receive
+and waits included), so a compiled program holds them in its graph
+(``utils/jit.py``). gloo takes CUDA tensors in its collectives but not in
+its point-to-point operations, so ``ring_shift`` stages through host
+memory where the group is gloo and the tensor is on a card, and only
+there; a program over a gloo group runs eagerly (``jit``'s backend rule).
 """
 
 from __future__ import annotations

@@ -105,6 +105,13 @@ class Layout:
             return None
         return ModelShard(self.model_group, self.model, self.model_rank)
 
+    @property
+    def groups(self) -> tuple:
+        """The axis groups this process's collectives run over (none
+        outside a process group)."""
+        return tuple(g for g in (self.data_group, self.model_group)
+                     if g is not None)
+
     def rows(self, n: int) -> tuple[int, int]:
         """This process's rows [lo, hi) of an ``n``-row global batch: the
         data ranks take contiguous slices in rank order, the first

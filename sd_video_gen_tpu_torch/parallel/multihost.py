@@ -11,7 +11,10 @@ processes after the backward pass (``all_reduce_mean``). With equal local
 batches that average is the global batch's mean gradient, the one JAX takes.
 
 ``COLLECTIVES`` counts ``all_reduce_mean`` calls by name in this process, so
-a run can show how often it reduced.
+a run can show how often it reduced. The all-reduce runs on the device
+without a host sync (a flat buffer per dtype, the collective, the division
+in place), so a compiled step over an NCCL group holds it in its graph
+(``utils/jit.py``), which then adds its count once per replay.
 """
 
 from __future__ import annotations

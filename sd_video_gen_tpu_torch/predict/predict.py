@@ -20,11 +20,14 @@ On the card the request (encode, rollout, refiner) runs as one compiled
 program per input shape (``utils/jit.py``; the JAX package's
 ``predict_impl``), and the CLI's decode as another (``decode_impl``). The
 request's host-to-device copy stays outside the program: the frames are
-copied to the card, then into the program's input. A run laid out over
-more than one process (``--mesh`` with a model axis, or several data
-ranks) stays eager: the sharded refiner's collectives run over gloo on one
-card, and a data rank's noise rows move with the batch. That is decided
-once, when the predictor is built (``compiled``).
+copied to the card, then into the program's input. Under ``--mesh`` the
+same holds: with a model axis the split UNet's and VAE's collectives and
+the sharded attention's routes (batch split, ring, gather) go into the
+graphs over the model group, or run eagerly where the backend cannot
+capture over it (gloo: ``jit``'s rule); a data rank's refiner noise rows
+are part of the request's key (``BatchWindow.key``). The ranks of a model
+group hold the same rows of every batch (``Layout.rows``), so they compile
+the same keys in the same order.
 
 The CLI (``main``, every flag of the JAX package's plus ``--device``):
 
@@ -91,13 +94,15 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
                     refiner: Optional[Callable] = None,
                     rollout: str = "full", int8: bool = False,
                     future_horizon: Optional[int] = None,
-                    compiled: bool = True):
+                    rows=None, groups=()):
     """``predict(frames_u8, text_embeds=None) -> (context_latents (B, T, L),
     preds (B, P, L))``.
 
-    With ``compiled`` the request after its host-to-device copy is one
-    ``jit`` program (``predict.impl``): a CUDA graph per frames shape on the
-    card, the function as it is on the CPU.
+    The request after its host-to-device copy is one ``jit`` program
+    (``predict.impl``): a CUDA graph per frames shape on the card, the
+    function as it is on the CPU. ``rows``: the ``BatchWindow``
+    the refiner's noise is cut to, whose ``key()`` joins the program's key;
+    ``groups``: the process groups the refiner's collectives run over.
 
     ``codec`` is a ``PixelCodec`` or ``VAECodec``; ``refiner`` the hook from
     ``diffusion/refine.make_denoise_refiner``. ``mode='text'`` takes text
@@ -138,7 +143,8 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
             return torch.cat([out[:, :-1],
                               (out[:, -1] + tgt[:, -1])[:, None]], dim=1)
 
-    def predict_impl(frames, text_embeds):
+    def predict_impl(frames, text_embeds, window_key=None):
+        # window_key only keys the program: the refiner reads the window
         latents = codec.encode_batch(frames, use_sos=True)
         kwargs = {"text_embeds": text_embeds} if text_embeds is not None \
             else {}
@@ -161,26 +167,25 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
                                refine_fn=refiner, model_kwargs=kwargs)
         return latents[:, 1:], preds
 
-    impl = jit(predict_impl, name="predict_impl") if compiled else \
-        predict_impl
+    impl = jit(predict_impl, name="predict_impl", groups=groups)
 
     @torch.inference_mode()
     def predict(frames_u8, text_embeds=None):
         frames = (frames_u8 if isinstance(frames_u8, torch.Tensor) else
                   torch.from_numpy(np.array(frames_u8, np.uint8)))
         # the host-to-device copy, outside the compiled program
-        return impl(frames.to(codec.device), text_embeds)
+        return impl(frames.to(codec.device), text_embeds,
+                    None if rows is None else rows.key())
 
     predict.impl = impl
     return predict
 
 
-def make_decode_fn(codec, compiled: bool = True):
+def make_decode_fn(codec, groups=()):
     """``codec.decode_latents`` as one compiled program per shape (the JAX
     CLI's ``decode_impl``: an eager VAE decode launches hundreds of kernels
-    a batch), or as it is."""
-    return (jit(codec.decode_latents, name="decode_impl") if compiled
-            else codec.decode_latents)
+    a batch); ``groups``: those a split VAE's collectives run over."""
+    return jit(codec.decode_latents, name="decode_impl", groups=groups)
 
 
 def load_model_params(cfg, args, model: torch.nn.Module,
@@ -414,15 +419,16 @@ def main(argv=None):
     # the diff residual add (see evaluation/predict_fvd.py)
     naive_mode = "ar" if (args.naive and args.train_mode == "diff") \
         else args.train_mode
-    # one process: compiled; a layout over several stays eager (docstring)
-    compiled = layout.data * layout.model == 1
+    # compiled, the split modules' collectives over the model group inside
+    # the graphs (module docstring)
+    groups = (layout.model_group,) if args.denoise else ()
     predict = make_predict_fn(model, codec, args.pred_frames,
                               window=cfg.frames_per_clip, mode=naive_mode,
                               refiner=refine_fn, rollout=args.rollout,
                               int8=args.int8 and not args.naive,
                               future_horizon=cfg.frames_to_predict,
-                              compiled=compiled)
-    decode = make_decode_fn(codec, compiled)
+                              rows=window, groups=groups)
+    decode = make_decode_fn(codec, groups=groups)
     embedder = build_embedder(args, device)
 
     if args.serve:

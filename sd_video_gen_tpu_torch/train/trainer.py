@@ -25,18 +25,21 @@ step synchronises the host. The dropout draws of a step come from a
 checkpoint draws what an uninterrupted one would.
 
 Compiled programs (``utils/jit.py``, the JAX trainer's ``jax.jit`` sites):
-in a run of one process the step after its host part (``step_impl``, its
-state donated: the parameters and Adam's moments update in place inside
-the program), the eval step (``eval_impl``) and in-training FVD's batch
-(``fvd_batch``) each run as one CUDA graph per batch shape on the card,
-and as they are on the CPU. The host part of a step seeds the dropout
-generator (registered with the capture, so a replay draws what the eager
-step draws for that seed), puts the batch on the device, fills Adam's bias
-corrections for the step number and advances it: nothing in the program
-changes from step to step but what those set. A run over a process group
-stays eager: its all-reduces (gloo on one card) and the mesh's collectives
-are host calls that a CUDA graph cannot hold. The ``Trainer`` decides that
-once, when it builds the step (``Trainer.compiled``).
+the step after its host part (``step_impl``, its state donated: the
+parameters and Adam's moments update in place inside the program), the
+eval step (``eval_impl``) and in-training FVD's batch (``fvd_batch``) each
+run as one CUDA graph per batch shape on the card, and as they are on the
+CPU. The host part of a step seeds the dropout generators (registered with
+the capture, so a replay draws what the eager step draws for that seed),
+puts the batch on the device, fills Adam's bias corrections for the step
+number and advances it: nothing in the program changes from step to step
+but what those set. Over a process group the collectives go into the
+graphs: the gradient all-reduce over the ``data`` group, and the model
+axis's all-reduces in the forward and the backward. Whether they can is
+the backend's rule (``jit.compilable``: NCCL yes, gloo no), which each
+``jit`` applies to the groups it was given: over gloo the programs run
+eagerly. Gathers, checkpoints, barriers and the epoch's metric reductions
+stay outside the graphs.
 
 Precisions (``--precision``): ``f32``; ``bf16`` (bf16 compute on f32 master
 parameters with f32 moments); ``bf16_full`` (bf16 parameters and bf16 Adam
@@ -223,15 +226,8 @@ def _batch_to(frames, device) -> torch.Tensor:
     return torch.as_tensor(frames).to(device)
 
 
-def grouped(layout) -> bool:
-    """True where ``layout`` spans a process group (a ``data`` group or a
-    model axis): its programs stay eager (module docstring)."""
-    return layout.data_group is not None or layout.model > 1
-
-
 def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
-                    mode: str = "ar", mu_dtype=None, layout=None,
-                    compiled: bool = True):
+                    mode: str = "ar", mu_dtype=None, layout=None):
     """Build (init_fn, step_fn) over ``model`` (a trainable
     ``FrameTransformer``) and the frozen ``codec``.
 
@@ -244,12 +240,12 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
 
     ``step_fn`` is the host part (dropout seed, the batch to the device,
     Adam's bias corrections, the step number) around ``step_impl`` (encode,
-    forward, loss, gradient, Adam in place), which with ``compiled`` is one
-    ``jit`` program (``step_fn.impl``: a CUDA graph per batch shape on the
-    card, its state donated and its dropout generator registered). A step
-    over a process group cannot be captured, so with one in ``layout``
-    ``compiled`` must be False (``ValueError`` otherwise): in a process
-    group the gradients are averaged over the ``data`` group of ``layout``
+    forward, loss, gradient, the all-reduce, Adam in place), one ``jit``
+    program (``step_fn.impl``: a CUDA graph per batch shape on the card,
+    its state donated, its dropout generators registered, its collectives
+    over ``layout``'s groups inside it, or eager where the backend cannot
+    capture over them). In a process group
+    the gradients are averaged over the ``data`` group of ``layout``
     (``parallel/mesh.py``; default: every process on ``data``), one
     all-reduce a step, before the update, and the data rank salts the
     dropout seed; the components stay this process's own. With a model
@@ -260,11 +256,6 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     opt = Adam(cfg.lr, mu_dtype=mu_dtype)
     device = _device_of(model)
     layout = layout or make_layout()
-    if compiled and grouped(layout):
-        raise ValueError(
-            "make_train_step: a step over a process group cannot be "
-            "compiled (its all-reduces and the mesh's collectives are host "
-            "calls a CUDA graph cannot hold): pass compiled=False")
     generator = torch.Generator(device=device)
     local = torch.Generator(device=device) if layout.model > 1 else None
 
@@ -288,9 +279,9 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
         opt.update(params, dict(zip(names, grads)), opt_state)
         return {name: v.detach() for name, v in comps.items()}
 
-    impl = (jit(step_impl, name="step_impl", donate_argnums=0, grad=True,
-                generators=[g for g in (generator, local) if g is not None])
-            if compiled else step_impl)
+    impl = jit(step_impl, name="step_impl", donate_argnums=0, grad=True,
+               generators=[g for g in (generator, local) if g is not None],
+               groups=layout.groups)
 
     def step_fn(state: TrainState, frames, seed: int, text_embeds=None):
         if not model.training:
@@ -312,13 +303,14 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
 
 
 def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
-                   mode: str = "ar", compiled: bool = True):
+                   mode: str = "ar", groups=()):
     """``eval_fn(frames[, text_embeds])`` -> the loss components of the
     model as it stands, without dropout or autograd; f32 loss math like the
     train side (bf16 GDL differences or NCE logits would make val_loss, and
-    ``save_best`` with it, noisy). With ``compiled``, after the batch's copy
-    to the device it is one ``jit`` program (``eval_fn.impl``, the JAX
-    trainer's ``eval_impl``), captured with the model in ``eval()`` mode."""
+    ``save_best`` with it, noisy). After the batch's copy to the device it
+    is one ``jit`` program (``eval_fn.impl``, the JAX
+    trainer's ``eval_impl``), captured with the model in ``eval()`` mode;
+    ``groups``: those a sharded ``model``'s collectives run over."""
     k = cfg.frames_to_predict
     use_sos = mode not in ("future", "learned_tgt")
     device = _device_of(model)
@@ -329,7 +321,7 @@ def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
             model, latents, k, mode, None, text_embeds)
         return composite_loss(pred_k.float(), target_k.float(), loss_w)[1]
 
-    impl = jit(eval_impl, name="eval_impl") if compiled else eval_impl
+    impl = jit(eval_impl, name="eval_impl", groups=groups)
 
     @torch.no_grad()
     def eval_fn(frames, text_embeds=None):
@@ -342,15 +334,15 @@ def make_eval_step(model, codec, loss_w: LossWeights, cfg: Config,
     return eval_fn
 
 
-def make_fvd_batch(model, codec, cfg: Config, mode: str = "ar",
-                   compiled: bool = True):
+def make_fvd_batch(model, codec, cfg: Config, mode: str = "ar", groups=()):
     """``fvd_batch(i3d, frames, text_embeds, protocol)`` -> the I3D
     statistics of one batch's generated and real clips, ``(n, Σx, Σxxᵀ)``
     each, the sums in f32 on the device (``FeatureStats.of_batch``): encode,
     teacher-forced predictions by ``protocol`` (``Trainer.fvd_validation``),
-    decode, I3D at 224px. With ``compiled`` it is one ``jit`` program (the
+    decode, I3D at 224px. It is one ``jit`` program (the
     JAX trainer's ``fvd_batch``) per (I3D module, protocol, batch shape);
-    ``frames`` must be on the device and the model in ``eval()`` mode."""
+    ``frames`` must be on the device and the model in ``eval()`` mode;
+    ``groups``: those a sharded ``model``'s collectives run over."""
     from sd_video_gen_tpu_torch.evaluation.fvd import (FeatureStats,
                                                        preprocess_videos)
     k = cfg.frames_to_predict
@@ -385,7 +377,7 @@ def make_fvd_batch(model, codec, cfg: Config, mode: str = "ar",
                                                         codec.latent_dim))
         return stats(i3d, dec.reshape(B, T, *dec.shape[1:])), stats(i3d, real)
 
-    return jit(fvd_batch, name="fvd_batch") if compiled else fvd_batch
+    return jit(fvd_batch, name="fvd_batch", groups=groups)
 
 
 class _NoLogger:
@@ -452,9 +444,6 @@ class Trainer:
         self.logger = (MetricsLogger(self.run_name, log_dir=log_dir,
                                      use_wandb=use_wandb and not debug)
                        if self.is_coordinator else _NoLogger())
-        # one process: the step, eval and FVD batch compiled; a process
-        # group stays eager (module docstring)
-        self.compiled = not grouped(self.layout)
         self._fvd_batch = None
         self.model = None
         self.state = None
@@ -475,15 +464,15 @@ class Trainer:
             "transformer", self.model.state_dict(), self.layout.model)
         self._init_fn, self._step_fn = make_train_step(
             self.model, self.codec, self.loss_w, self.cfg, self.mode,
-            mu_dtype=torch.bfloat16 if full else None, layout=self.layout,
-            compiled=self.compiled)
+            mu_dtype=torch.bfloat16 if full else None, layout=self.layout)
+        model_groups = (self.layout.model_group,)
         self._eval_fn = make_eval_step(self.model, self.codec, self.loss_w,
-                                       self.cfg, self.mode, self.compiled)
+                                       self.cfg, self.mode, model_groups)
         self._fvd_batch = make_fvd_batch(self.model, self.codec, self.cfg,
-                                         self.mode, self.compiled)
-        if self.compiled:       # one after another: one memory pool
-            self._eval_fn.impl.share_pool(self._step_fn.impl)
-            self._fvd_batch.share_pool(self._step_fn.impl)
+                                         self.mode, model_groups)
+        # one after another: one memory pool
+        self._eval_fn.impl.share_pool(self._step_fn.impl)
+        self._fvd_batch.share_pool(self._step_fn.impl)
         self.state = self._init_fn()
         n = sum(p.numel() * (self.layout.model if self.placements[k] else 1)
                 for k, p in self.state.params.items())

@@ -62,6 +62,21 @@ A capture that fails raises, naming the last torch function it reached
 (an ``.item()`` or a host-to-device copy from pageable memory cannot be
 captured: a host sync ends a capture); it never falls back to eager.
 
+A sharded program, ``jit(fn, groups=(g, ...))``, is the counterpart of a
+``jax.jit`` over a mesh: ``fn`` calls collectives over those process
+groups (the gradient all-reduce, the model axis's all-reduces, all-to-alls,
+all-gathers and ring exchanges, ``parallel/``), and they go into its graph.
+Whether a group's collectives can be captured is the backend's decision
+(``CudaGraphs.captures_over``): NCCL's run as kernels on the card and can;
+gloo's run on the host (and the ring's exchange stages through host
+memory), so a key over a gloo group runs ``fn`` eagerly, by that rule,
+decided before any capture and said once a ``jit`` (``RULED_EAGER`` counts
+such calls by name). Every rank of a group must call its programs with the
+same keys in the same order: a rank's compile warms up eagerly (which
+creates the group's NCCL communicators and the ring's peer connections,
+outside any capture) while the others warm up too, and their replays then
+meet as their eager calls would.
+
 Eager (``fn`` as it is) instead of a graph:
 
   - inside ``disable_jit()`` (the comparisons of compiled against eager);
@@ -69,15 +84,17 @@ Eager (``fn`` as it is) instead of a graph:
     act on the dispatchers, which a replay does not run;
   - inside another ``jit``'s compile (nested: its ops join the outer graph,
     as an inner ``jax.jit`` is inlined into the outer trace);
-  - where no argument is a CUDA tensor (the CPU: what the caller asked for).
+  - where no argument is a CUDA tensor (the CPU: what the caller asked for);
+  - over a process group the backend cannot capture over (gloo).
 
-Launch accounting: ``_kernels.LAUNCHES``, ``_kernels.CALLS`` and both
-dispatchers' launches by body are host counters, which a replay would not
-move. The counts a capture saw are taken out of the counters and kept with
-its graph, and each replay adds them once, so a replayed request counts
-what the same request counts eagerly. The warm-up's launches are the
-compile's, not a request's: they are taken out too and kept in
-``COMPILES`` with the compile's seconds.
+Launch accounting: ``_kernels.LAUNCHES``, ``_kernels.CALLS``, both
+dispatchers' launches by body, ``multihost.COLLECTIVES`` and
+``attention.TP_ROUTES`` are host counters (``_kernels.counters``), which a
+replay would not move. The counts a capture saw are taken out of the
+counters and kept with its graph, and each replay adds them once, so a
+replayed request or step counts what the same one counts eagerly. The
+warm-up's launches are the compile's, not a request's: they are taken out
+too and kept in ``COMPILES`` with the compile's seconds.
 """
 
 from __future__ import annotations
@@ -85,19 +102,26 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import inspect
 import threading
 import time
+import warnings
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 from torch.overrides import TorchFunctionMode
 
 from sd_video_gen_tpu_torch.ops import _kernels
 
 # One record per compile: the jit's name, the key's tensor shapes, seconds
-# of warm-up and capture, and the warm-up's and the graph's launches.
+# of warm-up and capture, the warm-up's and the graph's launches, and the
+# graph's all-reduces and sharded-attention routes (a sharded program's).
 COMPILES: list = []
+# Calls run eagerly because a group of the program's is one the backend
+# cannot capture over, by jit name.
+RULED_EAGER: collections.Counter = collections.Counter()
 _DISABLED: list = []
 _LOCAL = threading.local()
 
@@ -155,6 +179,12 @@ class CudaGraphs:
     def applies(self, tensors) -> bool:
         return any(t.is_cuda for t in tensors)
 
+    def captures_over(self, group) -> bool:
+        """Whether collectives over the process group ``group`` can go into
+        a graph: NCCL's launch kernels on the card's stream; gloo's compute
+        and synchronise on the host, which a capture cannot hold."""
+        return dist.get_backend(group) == "nccl"
+
     def new_pool(self, device):
         with torch.cuda.device(device):
             return torch.cuda.graph_pool_handle()
@@ -182,22 +212,39 @@ class CudaGraphs:
         """``(graph, output)`` of ``call`` captured on ``device``, with
         ``generators`` registered. A capture runs nothing, so the
         ``donated`` tensors (those ``call`` updates in place) keep their
-        values."""
+        values. Python's cyclic collector is held off while it lasts: an
+        object that owns another graph (an ``SDPipeline`` and its jits form
+        a cycle) freed by a collection inside the capture destroys that
+        graph, which a capturing stream does not permit, and the capture
+        fails; the collector frees it after."""
         graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
         for gen in generators:
             graph.register_generator_state(gen)
         if self.debug:
             graph.enable_debug_mode()
-        with torch.cuda.device(device):
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                out = call()
-            if self.debug:
-                graph.instantiate()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device):
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    out = call()
+                if self.debug:
+                    graph.instantiate()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out
 
 
 BACKEND = CudaGraphs()
+
+
+def compilable(groups=()) -> bool:
+    """Whether a program whose collectives run over ``groups`` (None
+    entries: no group) can be captured by ``BACKEND``: a caller's decision
+    made the way ``jit`` makes it."""
+    return all(BACKEND.captures_over(g) for g in groups if g is not None)
 
 
 def _snapshot() -> list:
@@ -235,8 +282,11 @@ class jit:
     """``fn`` compiled per key (module docstring)."""
 
     def __init__(self, fn, static_argnames=(), name: str | None = None,
-                 donate_argnums=(), generators=(), grad: bool = False):
+                 donate_argnums=(), generators=(), grad: bool = False,
+                 groups=()):
         self.fn = fn
+        self.groups = tuple(g for g in groups if g is not None)
+        self._said = False      # the eager-by-rule notice, once
         self.donate = frozenset((donate_argnums,)
                                 if isinstance(donate_argnums, int)
                                 else donate_argnums)
@@ -298,6 +348,8 @@ class jit:
                    + self._donated_leaves(slots))
         if not tensors or not BACKEND.applies(tensors):
             return self.fn(*args, **kwargs)
+        if not compilable(self.groups):
+            return self._ruled_eager(args, kwargs)
         key = tuple(self._key_of(where, a) for where, a in slots)
         entry = self._graphs.get(key)
         if entry is None:
@@ -317,6 +369,19 @@ class jit:
             return pytree.tree_map(
                 lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
                 entry.out)
+
+    def _ruled_eager(self, args, kwargs):
+        """``fn`` as it is: a group of its collectives is one the backend
+        cannot capture over (module docstring)."""
+        RULED_EAGER[self.name] += 1
+        if not self._said:
+            self._said = True
+            backends = sorted({str(dist.get_backend(g)) for g in self.groups
+                               if not BACKEND.captures_over(g)})
+            warnings.warn(f"jit({self.name}): runs eagerly: its collectives "
+                          f"run over a {'/'.join(backends)} process group, "
+                          f"which a CUDA graph cannot hold", stacklevel=3)
+        return self.fn(*args, **kwargs)
 
     def _mode(self):
         """What a call's copies and replay run under: no autograd."""
@@ -425,5 +490,6 @@ class jit:
             name=self.name, shapes=[list(b.shape) for b in bufs],
             warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
             warmup_launches=dict(warm_counts[0]),
-            graph_launches=dict(counts[0])))
+            graph_launches=dict(counts[0]),
+            graph_collectives=dict(counts[4]), graph_routes=dict(counts[5])))
         return entry

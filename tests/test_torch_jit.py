@@ -21,6 +21,9 @@ against eager) is ``tests/test_torch_jit_cuda.py``, which imports torch
 only.
 """
 
+import contextlib
+import gc
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -223,6 +226,38 @@ def test_a_failed_capture_raises_naming_the_op(monkeypatch):
     assert f.n_graphs == 0 and window.launches["flash_attention"] == 0
 
 
+class _FakeCUDAGraph:
+    """``torch.cuda.CUDAGraph`` as far as ``CudaGraphs.capture`` uses it."""
+
+    def __init__(self, keep_graph=False):
+        pass
+
+    def register_generator_state(self, gen):
+        pass
+
+
+def test_no_collection_runs_inside_a_capture(monkeypatch):
+    """The card's capture holds off Python's cyclic collector (a collection
+    there could free another graph, which ends the capture) and turns it
+    back on after, also when the captured call raises. The CUDA graph API
+    is stubbed: the rest of ``CudaGraphs.capture`` runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeCUDAGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    seen = []
+    _, out = J.CudaGraphs().capture("cuda", None,
+                                    lambda: seen.append(gc.isenabled()) or 7)
+    assert out == 7 and seen == [False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("capture")
+    with pytest.raises(RuntimeError, match="capture"):
+        J.CudaGraphs().capture("cuda", None, fails)
+    assert gc.isenabled()
+
+
 def test_an_input_that_requires_grad_is_refused(graphs):
     f = J.jit(lambda x: x * 2)
     with pytest.raises(ValueError, match="requires grad"):
@@ -352,14 +387,16 @@ def test_a_compiled_predict_equals_eager(sd, graphs, mode, rollout, int8,
     kw = dict(window=5, mode=mode, refiner=refiner, rollout=rollout,
               int8=int8, future_horizon=3 if mode == "future" else None)
     compiled = make_predict_fn(pm, cdc, PRED, **kw)
-    eager = make_predict_fn(pm, cdc, PRED, compiled=False, **kw)
     a = compiled(_frames(66))
     held = [x.clone() for x in a]
     b = compiled(_frames(67))
     assert compiled.impl.n_graphs == 1
-    for x, y, h in zip(a, eager(_frames(66)), held):
+    with J.disable_jit():
+        eager = [make_predict_fn(pm, cdc, PRED, **kw)(_frames(s))
+                 for s in (66, 67)]
+    for x, y, h in zip(a, eager[0], held):
         assert torch.equal(x, y) and torch.equal(x, h)
-    for x, y in zip(b, eager(_frames(67))):
+    for x, y in zip(b, eager[1]):
         assert torch.equal(x, y)
     compiled(_frames(68, batch=1))              # a ragged batch: its own
     assert compiled.impl.n_graphs == 2

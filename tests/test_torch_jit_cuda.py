@@ -13,6 +13,7 @@ drawn from a generator registered with the capture).
 """
 
 import contextlib
+import gc
 
 import numpy as np
 import pytest
@@ -54,6 +55,42 @@ def test_capturing_a_host_sync_raises_naming_the_op(cuda):
     assert f.n_graphs == 0
     # the device's default generator is usable after the failed capture
     assert torch.randn(3, device=cuda).isfinite().all()
+
+
+class _Cycle:
+    """An object in a reference cycle that owns a captured graph (as an
+    ``SDPipeline`` and its jits do): only the cyclic collector frees it."""
+
+    def __init__(self, device):
+        self.me = self
+        self.jit = J.jit(lambda x: x + 1, name="owned")
+        self.jit(torch.ones(4, device=device))
+
+
+@pytest.mark.cuda
+def test_a_collection_cannot_free_a_graph_during_a_capture(cuda):
+    """Garbage that owns a graph is freed after a capture, not inside it:
+    the captured function drops the last reference to such a cycle, sets
+    the collector's thresholds to their lowest and allocates enough Python
+    objects to start it many times over."""
+    holder = [_Cycle(cuda)]
+    thresholds = gc.get_threshold()
+
+    def churn(x):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()                 # the cycle is garbage now
+            gc.set_threshold(1, 1, 1)
+            for _ in range(10000):
+                [[]]                       # a container: counted by gc
+        return x * 2
+    try:
+        f = J.jit(churn, name="churn")
+        assert torch.equal(f(torch.ones(4, device=cuda)),
+                           torch.full((4,), 2.0, device=cuda))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert f.n_graphs == 1 and not holder
+    gc.collect()
 
 
 @pytest.mark.cuda

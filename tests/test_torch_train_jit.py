@@ -13,15 +13,17 @@ Against the JAX package, dropout off: the compiled step within the
 tolerances of ``tests/test_torch_train_step.py`` (f32: loss components
 rtol 1e-5, moments rel L2 1e-4 per tensor, parameters ``2 * lr`` a step and
 ``0.05 * lr`` where the first moment has stayed above 1e-5; bf16 and
-bf16_full: loss components rtol 5e-3 where that file measured it (mode 'ar',
-and the first step of every mode), parameters ``2 * lr`` a step plus two
-bf16 ulps a step where they are bf16).
+bf16_full: loss components rtol 5e-3 at equal parameters in every mode and
+at every step, along the two runs' own paths ``BF16_PATH_RTOL`` a mode,
+parameters ``2 * lr`` a step plus two bf16 ulps a step where they are
+bf16).
 
 The card's side (one compiled step with the kernels in its graph against
 eager) is ``tests/test_torch_jit_cuda.py``.
 """
 
 import socket
+import warnings
 
 import numpy as np
 import pytest
@@ -53,6 +55,20 @@ PRECISIONS = ("f32", "bf16", "bf16_full")
 FT = dict(dim_model=32, num_heads=4, num_encoder_layers=1,
           num_decoder_layers=2, dim_feedforward=48, frames_to_predict=K,
           text_embed_dim=TEXT_DIM, latent_dim=4 * (FRAME // 8) ** 2)
+# bf16 loss components along each framework's own 3-step path, a mode:
+# 1.5x the largest of bf16 and bf16_full, measured (eager, which the
+# compiled step equals bit for bit): ar 3.35e-3, future 5.05e-3, diff
+# 6.38e-3, text 5.32e-3, learned_tgt 3.69e-3. The cause is rounding both
+# frameworks share, not the port: at equal parameters (a port step from
+# JAX's state) every mode reads under 3.6e-3 at every step, held to the
+# 5e-3 of test_torch_train_step.py below; the paths part because Adam's
+# first updates are lr * sign(g) where |g| is bf16 rounding noise: after
+# step 1, 264-1083 parameters sit over lr / 2 apart, with a median |g|
+# 35-350x below the model's, and JAX's own bf16 step against its f32 one
+# parts 335-5290 parameters so, its components then 1.8e-3 to 1.75e-2 from
+# its f32 ones.
+BF16_PATH_RTOL = {"ar": 5e-3, "future": 7.6e-3, "diff": 9.6e-3,
+                  "text": 8e-3, "learned_tgt": 5.6e-3}
 CFG = dict(lr=1e-3, batch_size=2, frames_per_clip=CONTEXT,
            frames_to_predict=K, frame_size=FRAME, dim_model=32, num_heads=4,
            num_encoder_layers=1, num_decoder_layers=2, dropout_p=0.2,
@@ -220,7 +236,7 @@ def test_the_benchmarks_reset_keeps_the_graphs_tensors(graphs):
     same state, and the losses repeat bit for bit."""
     wl = B.scenario_train(sizes=TINY, device="cpu")
     trainer = wl.keep["trainer"]
-    assert trainer.compiled and wl.program is trainer._step_fn.impl
+    assert wl.program is trainer._step_fn.impl
     ids = _identities(trainer.state)
     replies = []
     for _ in range(3):
@@ -240,26 +256,31 @@ def test_the_benchmarks_reset_keeps_the_graphs_tensors(graphs):
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("mode", MODES)
 def test_the_compiled_step_matches_jax(graphs, mode, precision):
-    """3 compiled steps against 3 JAX steps. In bf16 the loss components'
-    5e-3 is the limit ``test_torch_train_step.py`` measured in mode 'ar':
-    it holds every step there, and step 1 (the same parameters, the
-    forward's rounding alone) in every mode. After a bf16 update the other
-    modes' components read up to 6.4e-3 from JAX's at steps 2-3 (eager
-    reads the same numbers: compiled equals eager bit for bit), so those
-    are held through the parameters' bound, every step."""
+    """3 compiled steps against 3 JAX steps. In bf16 the loss components
+    are held two ways each step: a port step from JAX's state (equal
+    parameters, the forward's rounding alone) to the 5e-3 that
+    ``test_torch_train_step.py`` measured, and the compiled step along
+    the port's own path to ``BF16_PATH_RTOL`` (the paths part by rounding
+    both frameworks share: see its comment)."""
     p = TS.pair(mode, precision)
     frames, text = TS._frames(mode), TS._text(mode)
     jstate = p.jax_state()
     _, state, step_fn = p.port(jstate)
     mu_floor = {}
     for step in (1, 2, 3):
+        if precision != "f32":
+            _, at_jax, step_at_jax = p.port(jstate)
+            with J.disable_jit():
+                equal = step_at_jax(at_jax, frames, 0, text)[1]
         jstate, jcomps = p.jax_step(jstate, frames, text)
         state, comps = step_fn(state, frames, 0, text)
-        if precision == "f32" or step == 1 or mode == "ar":
-            for k, v in jcomps.items():
-                np.testing.assert_allclose(
-                    float(comps[k]), v,
-                    rtol=1e-5 if precision == "f32" else 5e-3)
+        for k, v in jcomps.items():
+            if precision == "f32":
+                np.testing.assert_allclose(float(comps[k]), v, rtol=1e-5)
+                continue
+            np.testing.assert_allclose(float(equal[k]), v, rtol=5e-3)
+            np.testing.assert_allclose(float(comps[k]), v,
+                                       rtol=BF16_PATH_RTOL[mode])
         if precision == "f32":
             TS._check_f32_state(jstate, state, step, mu_floor)
             continue
@@ -365,19 +386,20 @@ def test_compiled_latent_cache_equals_eager(graphs, tmp_path):
     assert a.shape == (5, 3, codec.latent_dim) and a.tobytes() == b.tobytes()
 
 
-# -- a process group stays eager ---------------------------------------------
+# -- a gloo group stays eager, by the backend's rule -------------------------
 
-def test_a_process_groups_step_refuses_to_compile():
-    model, _, _ = _step("ar")
-    cfg = Config(**CFG)
-    for layout in (Layout(2, 1, 0, 0, data_group=object()),
-                   Layout(1, 2, 0, 0, model_group=object())):
-        assert T.grouped(layout)
-        with pytest.raises(ValueError, match="cannot be compiled"):
-            T.make_train_step(model, PixelCodec(FRAME, "cpu"),
-                              LossWeights.from_config(cfg), cfg,
-                              layout=layout)
-    assert not T.grouped(Layout(1, 1, 0, 0))
+class CardRule(J.CudaGraphs):
+    """The card's backend with its own group rule (``captures_over``), made
+    to take CPU tensors: a call it would capture reaches ``warmup``, which
+    fails the test; a call the rule makes eager never does."""
+
+    def applies(self, tensors):
+        return True
+
+    def warmup(self, device, call):
+        raise AssertionError("a program over a gloo group reached a compile")
+
+    capture = warmup
 
 
 def _free_port() -> int:
@@ -386,26 +408,75 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_a_trainer_in_a_process_group_is_eager_by_decision(graphs, tmp_path):
-    """A gloo group of one process: the Trainer decides eager when it
-    builds the step (no jit at all, not a failed capture), and the step
-    still all-reduces its gradients."""
+@pytest.fixture
+def gloo_group():
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
                             f"{_free_port()}", world_size=1, rank=0)
     try:
-        tr = T.Trainer(Config(**CFG), device="cpu", use_wandb=False,
-                       checkpoint_dir=str(tmp_path / "ck"),
-                       log_dir=str(tmp_path / "logs"))
-        assert not tr.compiled and tr.layout.data_group is not None
-        tr.init_state(seed=0)
-        assert not isinstance(tr._step_fn.impl, J.jit)
-        assert not isinstance(tr._fvd_batch, J.jit)
-        before = multihost.COLLECTIVES["grads"]
-        tr._step_fn(tr.state, _frames("ar"), 0)
-        assert multihost.COLLECTIVES["grads"] == before + 1
-        assert graphs.captures == 0 and tr.state.step == 1
+        yield dist.group.WORLD
     finally:
         dist.destroy_process_group()
+
+
+def test_a_process_groups_step_refuses_to_compile(monkeypatch, gloo_group):
+    """The card's backend captures over NCCL, not over gloo: a step built
+    ``compiled`` over a gloo data group or model axis runs eagerly by that
+    rule, decided before any compile (no caught failure), says so once
+    and still all-reduces its gradients; the stand-in captures over
+    any group."""
+    monkeypatch.setattr(J, "BACKEND", CardRule())
+    monkeypatch.setattr(J.dist, "get_backend", lambda g=None: (
+        "nccl" if g == "an nccl group" else dist.Backend.GLOO))
+    assert J.BACKEND.captures_over("an nccl group")
+    assert not J.BACKEND.captures_over(gloo_group)
+    assert not J.compilable([None, gloo_group]) and J.compilable([None])
+    assert ReplayGraphs().captures_over(gloo_group)
+    model, _, _ = _step("ar")
+    cfg = Config(**CFG)
+    for layout in (Layout(1, 1, 0, 0, data_group=gloo_group),
+                   Layout(1, 1, 0, 0, model_group=gloo_group)):
+        init_fn, step_fn = T.make_train_step(
+            model, PixelCodec(FRAME, "cpu"), LossWeights.from_config(cfg),
+            cfg, layout=layout)
+        assert isinstance(step_fn.impl, J.jit)
+        state, before = init_fn(), J.RULED_EAGER["step_impl"]
+        grads = multihost.COLLECTIVES["grads"]
+        with pytest.warns(UserWarning, match="runs eagerly.*gloo") as said:
+            for _ in range(2):
+                step_fn(state, _frames("ar"), 0)
+        assert len(said) == 1 and state.step == 2
+        assert step_fn.impl.n_graphs == 0
+        assert J.RULED_EAGER["step_impl"] == before + 2
+        assert multihost.COLLECTIVES["grads"] == grads + (
+            2 if layout.data_group is not None else 0)
+
+
+def test_a_trainer_in_a_process_group_is_eager_by_decision(
+        monkeypatch, tmp_path, gloo_group):
+    """A gloo group of one process under the card's backend: the Trainer's
+    programs are jits over its groups, and each call of the step runs
+    eagerly by the rule (no graph, not a failed capture), the gradients
+    still all-reduced. Under the stand-in, which captures over gloo, the
+    same Trainer's step compiles."""
+    for backend, ck in ((CardRule(), "ck"), (ReplayGraphs(), "ck2")):
+        monkeypatch.setattr(J, "BACKEND", backend)
+        tr = T.Trainer(Config(**CFG), device="cpu", use_wandb=False,
+                       checkpoint_dir=str(tmp_path / ck),
+                       log_dir=str(tmp_path / "logs"))
+        assert tr.layout.data_group is not None
+        tr.init_state(seed=0)
+        assert isinstance(tr._step_fn.impl, J.jit)
+        assert isinstance(tr._fvd_batch, J.jit)
+        grads, ruled = (multihost.COLLECTIVES["grads"],
+                        J.RULED_EAGER["step_impl"])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tr._step_fn(tr.state, _frames("ar"), 0)
+        assert multihost.COLLECTIVES["grads"] == grads + 1
+        assert tr.state.step == 1
+        eager = isinstance(backend, CardRule)
+        assert tr._step_fn.impl.n_graphs == (0 if eager else 1)
+        assert J.RULED_EAGER["step_impl"] == ruled + eager
 
 
 class PoolGraphs(ReplayGraphs):

@@ -7,14 +7,12 @@ flax init (no init program is compiled). Every leaf is random, biases and
 norm scales included, so a weight routed to the wrong place shows.
 """
 
-import collections
 import functools
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
-from torch.utils import _pytree as pytree
 
 from sd_video_gen_tpu.models.clip_text import (CLIPTextConfig as JCLIPConfig,
                                                CLIPTextEncoder as JCLIP)
@@ -35,8 +33,7 @@ from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
                                                        FrameTransformerConfig)
 from sd_video_gen_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from sd_video_gen_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-from sd_video_gen_tpu_torch.ops import _kernels
-from sd_video_gen_tpu_torch.utils import jit as J
+from torch_replay import ReplayGraphs  # noqa: F401  (the tests' stand-in)
 
 TINY_VAE = dict(block_out_channels=(8, 16), layers_per_block=1,
                 norm_num_groups=2)
@@ -146,65 +143,3 @@ def japply(module, params, *args, **kw):
 def t(x):
     """numpy / jax array -> CPU torch tensor."""
     return torch.from_numpy(np.array(x))
-
-
-class ReplayGraphs(J.CudaGraphs):
-    """The CPU's stand-in for ``torch.cuda.CUDAGraph`` under ``utils/jit.py``
-    (``jit.BACKEND``): its capture runs the function once on the static
-    inputs (as a capture records it), its replay runs it again and writes
-    the result into the captured outputs in place (as a replay rewrites the
-    graph's memory), with the package's launch counters left as they were
-    (a replay runs no Python).
-
-    A real capture runs nothing: the tensors a program updates in place
-    (``donated``) keep their values and the registered generators their
-    state. So this capture puts both back after its run. A replay draws
-    from each generator's state at that time, as the card's replay does."""
-
-    def __init__(self):
-        self.captures = 0
-
-    def applies(self, tensors):
-        return True
-
-    def new_pool(self, device):
-        return None
-
-    def warmup(self, device, call):
-        call()
-
-    def release_generators(self, device, generators=()):
-        pass
-
-    def capture(self, device, pool, call, generators=(), donated=()):
-        self.captures += 1
-        with torch.no_grad():
-            kept = [t.clone() for t in donated]
-        states = [g.get_state() for g in generators]
-        out = call()
-        with torch.no_grad():
-            for t, k in zip(donated, kept):
-                t.copy_(k)
-        for g, s in zip(generators, states):
-            g.set_state(s)
-        return _Replay(call, out), out
-
-
-class _Replay:
-    def __init__(self, call, out):
-        self.call, self.out = call, out
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-        before = [collections.Counter(c) for c in _kernels.counters()]
-        with J._nested():                  # what it runs is the graph's
-            new = self.call()
-        for c, b in zip(_kernels.counters(), before):
-            c.clear()
-            c.update(b)
-        with torch.no_grad():
-            for old, fresh in zip(pytree.tree_leaves(self.out),
-                                  pytree.tree_leaves(new)):
-                if isinstance(old, torch.Tensor):
-                    old.copy_(fresh)
