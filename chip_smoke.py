@@ -186,7 +186,12 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path;
               frame cache at the flagship's widths, f32, 2 steps at dropout
               0 (losses and the gathered checkpoint against one process)
               and 1 step at dropout 0.1 (the replicated parameters bit-equal
-              on every rank).
+              on every rank); ``predict.main --serve SOCK --mesh
+              data=2,model=2`` at the same depth, 2 clips a batch: a client
+              here sends a warm request and 2 more (one ragged), then each
+              rank runs the batch CLI under the same mesh on the same clips
+              (every reply equal to its frames bit for bit, and within
+              TP_PREDICT_OVER_BF16 of one process).
               Every worker program runs eagerly: the card's backend does
               not capture over gloo, and the workers record their
               signatures; no worker compiles (asserted). With ``--cards
@@ -197,9 +202,17 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path;
               all-reduce); the one-process references compile on card 0
               (the f32 predict references run too); the predict runs take
               3 batches (12 clips in 4s, 9 in 3s); the train runs add a
-              data=4 run at 6 clips a card against one process on the 24,
-              and ``train_flagship`` at data=4 (bf16, dropout 0.1, 6 clips a
-              card, 3 epochs) against the same on one card; each run's
+              data=4 run at 6 clips a card, held against an f64 step of
+              one process on the 24 and against one process that takes the
+              mean gradient of the 4 slices (TP_F64_FACTOR), and
+              ``train_flagship`` at data=4 (bf16, dropout 0.1, 6 clips a
+              card, 3 epochs) against the same on one card; two served runs
+              of the main path (``predict_cli_denoise_ar4`` at full depth:
+              ``tp_serve_model4``, data=1,model=4, 1 clip a request, and
+              ``tp_serve_data4``, data=4, 8 clips, two a rank; a warm
+              request and 4 timed ones), replies bit-equal to the same
+              mesh's batch CLI, their ``ready_s``, latencies and steady
+              frames/s printed; each run's
               compiled, eager and one-card seconds and warm rates (null
               where the window holds a compile or no warm step) are
               printed, and JSON on the line before the last; ``--runs``
@@ -253,8 +266,10 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path;
               the predict CLI and the knee's serving point run compiled (a
               replay adds what its capture counted)
  14. bench    the port's benchmark (``sd_video_gen_tpu_torch/bench.py``) in
-              this process: its ten scenarios (the JAX bench's names and
-              sizes), each warmed up (a serving request is one compiled
+              this process: one scenario of each kind (BENCH_SCENARIOS: pixel
+              serving, denoised serving, training; the JAX bench's names and
+              sizes; phases 4, 7 and 8 drive every path of the others), each
+              warmed up (a serving request is one compiled
               program, captured there) and timed over BENCH_REPEATS requests
               with exact launches by body and every repeat's checksum equal
               to the warm-up's, its FLOPs counted with the plain versions;
@@ -280,12 +295,14 @@ import argparse
 import collections
 import contextlib
 import copy
+import faulthandler
 import gc
 import io
 import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -331,6 +348,7 @@ from sd_video_gen_tpu_torch.predict.predict import (make_decode_fn,
                                                     make_predict_fn)
 from sd_video_gen_tpu_torch.tools import dpmpp_quality_gate as G
 from sd_video_gen_tpu_torch.tools import quality_modes as Q
+from sd_video_gen_tpu_torch.tools import split_check
 from sd_video_gen_tpu_torch.tools.bench_harness import (
     BF16_FLOPS, CONTEXT, DDIM_STEPS, F32_FLOPS, FLAGSHIP, FRAME,
     HBM_BYTES_PER_S, HI_RES, KERNELS, PATH_DEFAULTS, PATHS, REFINER_PATHS,
@@ -2443,6 +2461,7 @@ TP_PREDICT_PATH = dict(EVAL_PATHS[1], pred=1, refine=dict(
 # one FVD batch; 2 train steps at dropout 0, 1 at dropout 0.1
 TP_FVD_CLIPS, TP_EPOCH_RATIO = 8, {0.0: 0.16, 0.1: 0.08}
 TP_TIMEOUT = 420                           # seconds, a set of four workers
+TP_SERVE_TIMEOUT = 240      # a four-card served run's set (it served in 61 s)
 TP_RUNS = [
     dict(name="tp_predict_denoise_4", entry="predict",
          mesh="data=1,model=4", clips=4, route="batch"),
@@ -2452,7 +2471,9 @@ TP_RUNS = [
     dict(name="tp_train_flagship", entry="train", mesh="data=2,model=2",
          config="tp_flagship"),
     dict(name="tp_train_flagship_dropout", entry="train",
-         mesh="data=2,model=2", config="tp_flagship_dropout", one=False)]
+         mesh="data=2,model=2", config="tp_flagship_dropout", one=False),
+    dict(name="tp_serve_rehearsal", entry="serve", mesh="data=2,model=2",
+         batch=2, path=TP_PREDICT_PATH, timed=2)]
 # The configs of the train runs: tp_flagship's batch of 6 (2 steps at
 # dropout 0) and tp_flagship_dropout's (1 step at 0.1); on four cards
 # tp_data4's 24 (3 steps at dropout 0) and flagship_data4's 24 (3 epochs of
@@ -2466,17 +2487,23 @@ TP_CONFIGS = {
     "flagship_data4": dict(BATCH_SIZE=[24], EPOCHS=[3]),
     "flagship_one": dict(EPOCHS=[3], EPOCH_RATIO=[0.24])}
 TP_CARD_RUNS = [
+    dict(name="tp_train_data4", entry="train", mesh="data=4",
+         config="tp_data4", yardstick="f64"),
+    dict(name="tp_serve_data4", entry="serve", mesh="data=4", batch=8,
+         path=EVAL_PATHS[1], timed=4, timeout=TP_SERVE_TIMEOUT),
+    dict(name="tp_serve_model4", entry="serve", mesh="data=1,model=4",
+         batch=1, path=EVAL_PATHS[1], timed=4, route="ring",
+         timeout=TP_SERVE_TIMEOUT),
     dict(TP_RUNS[0], clips=12, batch=4),
     dict(TP_RUNS[1], clips=9, batch=3),
-    *TP_RUNS[2:],
-    dict(name="tp_train_data4", entry="train", mesh="data=4",
-         config="tp_data4"),
+    *TP_RUNS[2:5],
     dict(name="train_flagship_data4", entry="train", mesh="data=4",
          config="flagship_data4", one_config="flagship_one",
          precision="bf16_full", one=False)]
 # the programs each entry point compiles at least (four cards; a train run
 # compiles ``eval_impl`` too where its split has a validation batch)
 TP_PROGRAMS = {"predict": {"predict_impl", "decode_impl"},
+               "serve": {"predict_impl", "decode_impl"},
                "fvd": {"predict_impl", "decode_impl", "features"},
                "train": {"step_impl"}}
 # Bounds against the one-process run of the same entry point on the card.
@@ -2503,6 +2530,46 @@ TP_FVD_RTOL, TP_MSE_RTOL = 5e-2, 2e-2
 # moments within TP_LAST_MOMENT_REL_L2 (the later gradients are taken at
 # those parted parameters).
 TP_LOSS_RTOL, TP_MOMENT_REL_L2, TP_LAST_MOMENT_REL_L2 = 1e-4, 1e-4, 5e-2
+# train at data=4 (f32, 6 clips a card, 3 steps at dropout 0): held by
+# in-run yardsticks, not against one process on the 24 with the bounds
+# above. The split batch is not a fault: against the f64 gradient of the
+# whole batch (tools/split_check.py --reference f64 on one H100 80GB HBM3
+# at 700 W, 24 square clips), one process's f32 gradient reads 1.662e-5
+# over all tensors, the mean of 4 slices' 1.630e-5 and the reversed
+# batch's 1.662e-5; on this run's own first batch (its f64 step, the run
+# rehearsed over gloo on one such card) the three read 2.714e-3, 2.713e-3
+# and, for the data=4 ranks, 2.713e-3. Every product computes in f32 at
+# both shapes (--products: forward within 5.7e-6 of f64); the two orders
+# part where rounding moves a ReLU's or an |x|'s input across 0, by up to
+# 1.1e-4 on one tensor (the data=4 run against one process on four cards).
+# Step 1 (the same parameters in every run): the moments after it, worst
+# tensor and all tensors at once, no farther from the f64 step's than
+# TP_F64_FACTOR times one process's; its loss components no farther from
+# the f64 step's than TP_F64_FACTOR times one process's, or f32's own
+# floor, TP_F32_LOSS_FLOOR (a mean of f32 terms cannot be held closer than
+# a few ulps). Against one process that takes the mean gradient of the 4
+# slices on one card (tools/split_check.sliced_step), the same
+# computation but for the all-reduce's order: every step's components
+# within TP_LOSS_RTOL, the moments after step 1 within TP_MOMENT_REL_L2,
+# the parameters within 2 lr a step. After steps 2-3 the split's rounding
+# has parted one process's run on the whole batch and that run alike: the
+# data=4 run no farther from one process than TP_F64_FACTOR times it, the
+# components (or f32's floor) and the moments over all tensors at once; on
+# one tensor Adam's sign-like first steps on gradients at rounding level
+# let even the all-reduce's order part the two split runs as far as the
+# split parts them from one process (2.4e-1 after 3 steps, rehearsed over
+# gloo on one card), so the worst tensor is printed, not held, there. The
+# parameters within 2 lr a step of one process's, as before. Per tensor
+# the fused projections read a third at a time and a key bias's third is
+# left out (its exact gradient is 0). Each rank's batch at every step is
+# its rows of the one-process batch, bit for bit, and the positional term
+# the timestep's.
+TP_F64_FACTOR, TP_F32_LOSS_FLOOR = 2.0, 2.0 ** -21
+
+
+# The served runs: the requests' clips (``serve_requests``) and the
+# server's socket, in the run's directory.
+SERVE_CLIPS, SERVE_SOCK = "serve.npy", "serve.sock"
 
 
 def _axes(run) -> dict:
@@ -2522,6 +2589,13 @@ def tp_argv(run, files, data_dir, one=False) -> list:
         return eval_argv(files, path, clips=run["clips"]) + [
             "--denoise_start_step",
             str(TP_PREDICT_PATH["refine"]["start_step"])]
+    if run["entry"] == "serve":
+        # the batch CLI over the requests' clips (serve_requests, in the
+        # run's directory); the server takes --serve on top
+        path = dict(run["path"], batch_clips=run["batch"])
+        return eval_argv(dict(files, mnist=os.path.abspath(SERVE_CLIPS)),
+                         path, clips=1000) + [
+            "--denoise_start_step", str(path["refine"]["start_step"])]
     if run["entry"] == "fvd":
         return eval_argv(files, EVAL_PATHS[0], clips=TP_FVD_CLIPS)
     config = run.get("one_config", run["config"]) if one else run["config"]
@@ -2532,12 +2606,16 @@ def tp_argv(run, files, data_dir, one=False) -> list:
             "--debug", "True"]
 
 
-def tp_entry(run, argv, compiled=False):
+def tp_entry(run, argv, compiled=False, f64=False, slices=1):
     """Drive ``run``'s entry point in this process with spies on what it
     computes: (its return value, what the spies saw). The spies sit outside
     the compiled programs (around the predictor, the decode, the sharded
     statistics and the step's host part), so ``compiled`` runs it as a user
-    would; else eagerly (``disable_jit``)."""
+    would; else eagerly (``disable_jit``). A train run records each step's
+    batch (digests of its rows of each data rank where it runs alone) and
+    its positional term; ``f64`` adds the f64 gradient and loss of its
+    first step (``f64_step``), ``slices`` trains on the mean gradient of
+    that many slices of each batch (``split_check.sliced_step``)."""
     from sd_video_gen_tpu_torch.evaluation import predict_fvd as PPF
     seen = collections.defaultdict(list)
     real = (P.make_predict_fn, P.make_decode_fn, PPF.make_sharded_features,
@@ -2570,14 +2648,32 @@ def tp_entry(run, argv, compiled=False):
             return st
         return run_
 
+    parts = 1 if "--mesh" in argv else _axes(run)["data"]
+
     def fit(self, *a, **kw):
         seen["trainer"].append(self)
         if self.state is None:            # as fit itself would
             self.init_state(seed=kw.get("seed", 0))
+        seen["pe_mode"] = self.model_cfg.pe_mode
+        if slices > 1:
+            self._step_fn = split_check.sliced_step(
+                self.model, self.codec, self.loss_w, self.cfg, slices)
         step_fn = self._step_fn
 
         def step(*b):
+            frames = (b[1] if isinstance(b[1], torch.Tensor)
+                      else torch.as_tensor(np.asarray(b[1])))
+            seen["batches"].append([_digest(c)
+                                    for c in frames.chunk(parts)])
+            if f64 and "f64" not in seen:
+                seen["f64"] = f64_step(self, frames)
             state, comps = step_fn(*b)
+            if f64 and "f32_vs_step" not in seen["f64"]:
+                c1 = float(np.float32(1 - Adam(1.0).b1))
+                seen["f64"]["f32_vs_step"] = _distance(
+                    {k: v.detach().cpu() / c1 for k, v in
+                     state.opt_state["mu"].items()},
+                    seen["f64"].pop("g32"))[1]
             seen["steps"].append({k: float(v) for k, v in comps.items()})
             if len(seen["steps"]) == 1:     # every rank gathers, one keeps
                 full = self.full_state()
@@ -2593,14 +2689,38 @@ def tp_entry(run, argv, compiled=False):
     try:
         with contextlib.redirect_stdout(io.StringIO()) as out, \
                 (contextlib.nullcontext() if compiled else J.disable_jit()):
-            main = {"predict": P.main, "fvd": PPF.main,
-                    "train": T.main}[run["entry"]]
+            main = {"predict": P.main, "fvd": PPF.main, "train": T.main,
+                    "serve": P.main}[run["entry"]]
             ret = main(argv)
     finally:
         P.make_predict_fn, P.make_decode_fn = real[:2]
         PPF.make_sharded_features, Trainer.fit = real[2:]
     seen["lines"] = out.getvalue().splitlines()
     return ret, seen
+
+
+def f64_step(trainer, frames) -> dict:
+    """The gradient and loss components of ``trainer``'s first step in
+    f64: its model as it stands, cast, on ``frames`` (the codec's latents
+    cast; ``tools/split_check.gradients``), on its card; the gradient on
+    the host."""
+    args = (trainer.codec, trainer.loss_w, trainer.cfg.frames_to_predict,
+            frames)
+    model = copy.deepcopy(trainer.model).double()
+    grads, comps = split_check.gradients(model, *args, torch.float64)
+    out = {"grads": {k: v.cpu() for k, v in grads.items()}, "comps": comps}
+    del model, grads
+    # the same in f32 here, outside the trainer: its distance from f64,
+    # and from the trainer's first step (Adam's mu / (1 - b1))
+    model = copy.deepcopy(trainer.model)
+    g32 = {k: v.cpu() for k, v in split_check.gradients(model, *args)[0]
+           .items()}
+    out["f32_rel_l2"] = _distance(g32, out["grads"])[1]
+    out["g32"] = g32
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _digest(t: torch.Tensor) -> str:
@@ -2614,6 +2734,8 @@ def _train_result(ret, seen) -> dict:
     (gathered) checkpoint's path, digests of this rank's own parameters."""
     (trainer,) = seen.pop("trainer")
     return dict(history=ret, steps=seen["steps"], first=seen.get("first"),
+                batches=seen["batches"], pe_mode=seen["pe_mode"],
+                f64=seen.get("f64"),
                 checkpoint=checkpoint_path(
                     trainer.checkpoint_dir, trainer.cfg.config_name,
                     trainer.index, "test"),
@@ -2621,7 +2743,7 @@ def _train_result(ret, seen) -> dict:
                          for k, p in trainer.state.params.items()})
 
 
-def tp_run(run, argv, compiled=False, signatures=False) -> dict:
+def tp_run(run, argv, compiled=False, signatures=False, **train) -> dict:
     """``run``'s entry point in this process inside one launch window,
     compiled or eagerly, its kernel signatures recorded where asked (which
     makes every program eager): its results, seconds, launches by body,
@@ -2633,7 +2755,7 @@ def tp_run(run, argv, compiled=False, signatures=False) -> dict:
     with timed_train_loops() as walls, launch_window() as window, \
             (_kernels.record_calls() if signatures
              else contextlib.nullcontext()) as rec:
-        ret, seen = tp_entry(run, argv, compiled)
+        ret, seen = tp_entry(run, argv, compiled, **train)
     res = dict(seconds=time.perf_counter() - t0, launches=window.launches,
                bodies=window.bodies, gn_bodies=window.gn_bodies,
                calls=window.calls, routes=dict(TP_ROUTES),
@@ -2656,7 +2778,8 @@ def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
     on its own card of four), drives the entry point under the mesh with the
     counts at 0, and saves what it saw, its launches and the kernel
     signatures it handed the dispatchers (four cards: the compiled run, and
-    the eager one under ``eager``)."""
+    the eager one under ``eager``; a served run's server, then on one card
+    its batch CLI, or on four its batch CLI alone, compiled)."""
     strict_f32()
     with open(job) as f:
         run, argv, cards = json.load(f)
@@ -2666,26 +2789,56 @@ def tp_worker(rank: str, world: str, port: str, job: str, out: str) -> int:
     card_ = torch.device("cuda", 0 if cards == 1 else int(rank))
     if multihost.rank_device(torch.device("cuda")) != card_:
         raise AssertionError(f"rank {rank} is not on {card_}")
+    # a worker that outlives its set's time prints every thread's stack
+    # when its parent asks (run_tp_workers), before it is killed
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     argv = argv + ["--mesh", run["mesh"]]
     group = torch.distributed.group.WORLD
     res = dict(backend=torch.distributed.get_backend(),
                captures_over=J.BACKEND.captures_over(group))
-    if cards == 1:
+    if run["entry"] == "serve":
+        # the server until the client's shutdown; on the one card (gloo,
+        # eager: no graph holds a collective) the batch CLI on the clips it
+        # was sent follows in the same process
+        res.update(tp_run(run, argv + ["--serve", os.path.abspath(
+            SERVE_SOCK)], compiled=cards > 1, signatures=cards == 1))
+        if cards == 1:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["cli"] = tp_run(dict(run, entry="predict"), argv)
+    elif cards == 1:
         res.update(tp_run(run, argv, signatures=True))
+    elif run.get("reference"):
+        # a served run's batch CLI: compiled, as the server runs
+        res.update(tp_run(run, argv, compiled=True))
     else:
         res.update(tp_run(run, argv, compiled=True))
         gc.collect()
         torch.cuda.empty_cache()
         res["eager"] = tp_run(run, argv, signatures=True)
     torch.save(res, out)
+    # NCCL's destroy waits while a graph that holds one of its collectives
+    # lives. The entry points free their programs as they return
+    # (multihost.releases_programs); a train run's Trainer was held here
+    # (tp_entry's spy), so its programs are freed here. A sharded program
+    # still alive fails the rank rather than hang it in the destroy.
+    if run["entry"] == "train":
+        multihost.release_programs()
+    live = [o.name for o in gc.get_objects()
+            if isinstance(o, J.jit) and o.groups and o.n_graphs]
+    if live:
+        raise AssertionError(f"rank {rank}: programs alive after the entry "
+                             f"point returned: {live}")
     torch.distributed.destroy_process_group()
     return 0
 
 
-def run_tp_workers(run, argv, workdir, cards) -> list:
+def run_tp_workers(run, argv, workdir, cards, client=None):
     """``run`` as TP_WORLD worker processes on ``cards`` cards; their
-    results by rank. A worker that fails or outlives TP_TIMEOUT ends the
-    phase, every worker stopped."""
+    results by rank (with ``client``, called while they run: and its
+    return value). A worker that fails or outlives the run's time
+    (TP_TIMEOUT unless it names one) ends the phase, every worker stopped;
+    one that outlives it first prints its threads' stacks to its log."""
     job = os.path.join(workdir, f"{run['name']}.json")
     with open(job, "w") as f:
         json.dump([run, argv, cards], f)
@@ -2702,10 +2855,19 @@ def run_tp_workers(run, argv, workdir, cards) -> list:
         env=dict(os.environ, LOCAL_RANK=str(r if cards > 1 else 0),
                  NCCL_SOCKET_IFNAME="lo"), stdout=logs[r],
         stderr=subprocess.STDOUT, cwd=workdir) for r in range(TP_WORLD)]
-    end = time.monotonic() + TP_TIMEOUT
+    timeout = run.get("timeout", TP_TIMEOUT)
+    end = time.monotonic() + timeout
+    got, hung = None, []
     try:
+        if client is not None:
+            got = client(procs)
         for p in procs:
             p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for r in hung:
+            procs[r].send_signal(signal.SIGUSR1)
+        time.sleep(3.0)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2713,14 +2875,16 @@ def run_tp_workers(run, argv, workdir, cards) -> list:
                 p.wait()
         for f in logs:
             f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    bad = hung or [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         with open(logs[bad[0]].name) as f:
             tail = f.read()[-3000:]
-        raise AssertionError(f"{run['name']}: workers {bad} failed "
+        what = f"outlived {timeout} s" if hung else "failed"
+        raise AssertionError(f"{run['name']}: workers {bad} {what} "
                              f"({[p.returncode for p in procs]}); rank "
                              f"{bad[0]}:\n{tail}")
-    return [torch.load(o, weights_only=False) for o in outs]
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    return ranks if client is None else (ranks, got)
 
 
 def _rel(a, b) -> float:
@@ -2848,6 +3012,283 @@ def check_tp_train(run, ranks, one, lr: float) -> None:
         raise AssertionError(f"{run['name']}: the gathered state differs")
 
 
+def _distance(a: dict, b: dict) -> tuple:
+    """Tensors ``a`` against ``b`` (name -> tensor): (the worst relative
+    L2, its tensor) and the relative L2 over all at once; the fused input
+    projections read a third at a time as well, a key bias's third left
+    out (its exact gradient is 0: in every run its value is rounding
+    alone, with no relative error to bound; ``tools/split_check.py``)."""
+    num = den = 0.0
+    for k, v in b.items():
+        num += float((a[k].double() - v.double()).norm() ** 2)
+        den += float(v.double().norm() ** 2)
+    parts = split_check._thirds(b)
+    got = split_check._thirds(a)
+    worst = max((_rel(got[k], v), k) for k, v in parts.items()
+                if not k.endswith("in_proj_bias[k]") and v.norm())
+    return worst, (num / den) ** 0.5
+
+
+def _f64_moments(grads) -> dict:
+    """Adam's moments after its first step on the f64 gradient, with the
+    step's own f32 factors (``train/optim.py``)."""
+    adam = Adam(DATA_YML["LR"][0])
+    c1, c2 = (float(np.float32(1 - b)) for b in (adam.b1, adam.b2))
+    return {"mu": {k: c1 * g for k, g in grads.items()},
+            "nu": {k: c2 * g * g for k, g in grads.items()}}
+
+
+def check_tp_train_yardstick(run, ranks, one, split, lr) -> None:
+    """The data=4 run held by its in-run yardsticks (TP_F64_FACTOR's
+    comment): each rank's batches; step 1 against the f64 step beside one
+    process; every step against the one-process run on the 4 slices' mean
+    gradient, and its distance from one process on the whole batch against
+    that run's; the parameters against both."""
+    data, model = _axes(run)["data"], _axes(run)["model"]
+    for r, res in enumerate(ranks):
+        rows = [b[r // model] for b in one["batches"]]
+        if [b[0] for b in res["batches"]] != rows or res["pe_mode"] != \
+                "timestep" or one["pe_mode"] != "timestep":
+            raise AssertionError(f"{run['name']}: rank {r}'s batches or "
+                                 f"positional term are not one process's")
+    log(f"{run['name']}: every rank's batch at each of "
+        f"{len(one['batches'])} steps is its rows of the one-process batch "
+        f"bit for bit; positional term {one['pe_mode']} on every rank")
+    by_data = [res["steps"] for res in ranks[::model]]
+    got = [{k: sum(d[i][k] for d in by_data) / len(by_data) for k in w}
+           for i, w in enumerate(one["steps"][:len(by_data[0])])]
+    exact = one["f64"]
+    steps = len(split["steps"])
+    fmt = lambda d: f"{d[0][0]:.3e} ({d[0][1]}) / {d[1]:.3e}"
+    ok = len(got) == steps == len(one["steps"])
+
+    def comps_rel(a, b):
+        return {k: abs(a[k] - b[k]) / abs(b[k]) for k in b if b[k]}
+    # step 1, the same parameters in every run: against the f64 step
+    f64 = _f64_moments(exact["grads"])
+    d4, d1, ds = ({t: _distance(res["first"][t], f64[t])
+                   for t in ("mu", "nu")} for res in (ranks[0], one, split))
+    c4, c1 = (comps_rel(c, exact["comps"]) for c in (got[0],
+                                                     one["steps"][0]))
+    log(f"{run['name']}: step 1 against the f64 step (worst tensor / all "
+        f"tensors; the f32 step of one process on the whole batch in this "
+        f"process reads {exact['f32_rel_l2']:.3e} over all tensors from "
+        f"it and {exact['f32_vs_step']:.3e} from the trainer's): "
+        + "; ".join(f"{t} data={data} {fmt(d4[t])}, one process "
+                    f"{fmt(d1[t])}, the slices' mean {fmt(ds[t])}"
+                    for t in ("mu", "nu"))
+        + f" (bound {TP_F64_FACTOR}x one process's); loss components "
+        f"{ {k: '%.2e / %.2e' % (c4[k], c1[k]) for k in c1} } (bound "
+        f"{TP_F64_FACTOR}x one process's or {TP_F32_LOSS_FLOOR:.2e})")
+    ok = ok and all(d4[t][0][0] <= TP_F64_FACTOR * d1[t][0][0]
+                    and d4[t][1] <= TP_F64_FACTOR * d1[t][1] for t in d4)
+    ok = ok and all(c4[k] <= max(TP_F64_FACTOR * c1[k], TP_F32_LOSS_FLOOR)
+                    for k in c1)
+    # every step: against the one-process run on the slices' mean gradient
+    same = [max(comps_rel(g, w).values())
+            for g, w in zip(got, split["steps"])]
+    first = {t: _distance(ranks[0]["first"][t], split["first"][t])
+             for t in ("mu", "nu")}
+    tp_state, split_state = _states(ranks[0]["checkpoint"],
+                                    split["checkpoint"])
+    _, one_state = _states(ranks[0]["checkpoint"], one["checkpoint"])
+    last = {t: _distance(tp_state[t], split_state[t]) for t in ("mu", "nu")}
+    apart = lambda b: max(float((tp_state["params"][k] - v).abs().max())
+                          for k, v in b["params"].items())
+    params, params_one = apart(split_state), apart(one_state)
+    log(f"{run['name']}: against one process on the {data} slices' mean "
+        f"gradient: loss components worst rel diff "
+        f"{['%.2e' % x for x in same]} (rtol {TP_LOSS_RTOL}); after step 1 "
+        f"mu {fmt(first['mu'])}, nu {fmt(first['nu'])} (worst bound "
+        f"{TP_MOMENT_REL_L2}); after step {steps} mu {fmt(last['mu'])}, nu "
+        f"{fmt(last['nu'])}; parameters worst |diff| {params:.3e}, against "
+        f"one process on the whole batch {params_one:.3e} (bound "
+        f"{2 * lr * steps:.1e} each)")
+    ok = ok and (tp_state["step"] == split_state["step"] == steps
+                 and max(same) <= TP_LOSS_RTOL
+                 and max(first[t][0][0] for t in first) <= TP_MOMENT_REL_L2
+                 and max(params, params_one) <= 2 * lr * steps * 1.001)
+    # steps 2-3: the split's rounding parts one process's run and the
+    # slices' mean run alike; the data=4 run no farther from one process
+    far4 = [comps_rel(g, w) for g, w in zip(got, one["steps"])]
+    fars = [comps_rel(g, w) for g, w in zip(split["steps"], one["steps"])]
+    l4, ls = ({t: _distance(st[t], one_state[t]) for t in ("mu", "nu")}
+              for st in (tp_state, split_state))
+    log(f"{run['name']}: against one process on the whole batch, data="
+        f"{data} / the slices' mean: loss components "
+        + ", ".join(f"step {i + 1} "
+                    f"{max(a.values()):.2e} / {max(b.values()):.2e}"
+                    for i, (a, b) in enumerate(zip(far4, fars)))
+        + f"; after step {steps} mu {fmt(l4['mu'])} / {fmt(ls['mu'])}, nu "
+        f"{fmt(l4['nu'])} / {fmt(ls['nu'])} (bound {TP_F64_FACTOR}x the "
+        f"second over all tensors, or f32's floor for a component)")
+    ok = ok and all(a[k] <= max(TP_F64_FACTOR * b[k], TP_F32_LOSS_FLOOR)
+                    for a, b in zip(far4[1:], fars[1:]) for k in b)
+    ok = ok and all(l4[t][1] <= TP_F64_FACTOR * ls[t][1] for t in l4)
+    if not ok:
+        raise AssertionError(f"{run['name']}: outside its yardsticks")
+
+
+def write_test_clips(path: str, clips: np.ndarray, seed: int = 0) -> None:
+    """Write a Moving-MNIST-layout ``.npy`` whose test split, read at
+    ``seed`` (the CLIs' ``--seed``, 0 by default), yields exactly ``clips``
+    ((N, T, H, W) uint8) in this order: the clips a client sends a server,
+    for the batch CLI. Its train split repeats the first clip."""
+    n = len(clips)
+    total = n
+    while total - int(total * 0.8) != n:
+        total += 1
+    test = np.empty_like(clips)
+    test[np.random.default_rng(seed).permutation(n)] = clips
+    raw = np.concatenate([np.repeat(clips[:1], total - n, axis=0), test])
+    np.save(path, np.ascontiguousarray(np.transpose(raw, (1, 0, 2, 3))))
+
+
+def serve_requests(run, files) -> list:
+    """A served run's requests: a warm one and ``run["timed"]`` more,
+    ``run["batch"]`` clips each from the evaluation clips' test split (the
+    second timed one a clip short, where the batch holds more than one),
+    uint8 (clips, T, H, W, 3); the clips padded as the server pads them
+    written to SERVE_CLIPS, which the batch CLI reads back in this order."""
+    data = MovingMNISTDataset(CONTEXT, 1, files["mnist"], "test",
+                              seed=0).data
+    batch, out, padded, at = run["batch"], [], [], 0
+    for i in range(1 + run["timed"]):
+        n = batch - 1 if i == 2 and batch > 1 else batch
+        rows = [(at + j) % len(data) for j in range(n)]
+        at += n
+        out.append(np.ascontiguousarray(data[rows]))
+        padded += rows + [rows[-1]] * (batch - n)
+    write_test_clips(os.path.abspath(SERVE_CLIPS), data[padded][..., 0])
+    return out
+
+
+def serve_client(requests, timeout_s):
+    """The client of a served run, called while its workers run: it waits
+    for the socket (failing at once if a rank ends first), sends
+    ``requests`` and an oversize one (an error reply), then ``shutdown``;
+    returns the replies with their latencies (the server's and this
+    side's)."""
+    def client(procs):
+        sock = os.path.abspath(SERVE_SOCK)
+        t0 = time.perf_counter()
+        while True:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError(f"serve: ranks ended before "
+                                     f"SERVE_READY: "
+                                     f"{[p.poll() for p in procs]}")
+            try:
+                S.ping(sock, timeout_s=5.0)
+                break
+            except OSError:
+                if time.perf_counter() - t0 > timeout_s:
+                    raise
+                time.sleep(0.5)
+        out = {"wait_s": time.perf_counter() - t0, "replies": []}
+        for frames in requests:
+            t1 = time.perf_counter()
+            imgs, is_pred, head = S.request(sock, frames,
+                                            timeout_s=timeout_s)
+            out["replies"].append(dict(
+                imgs=imgs, is_pred=is_pred, latency_s=head["latency_s"],
+                wall_s=time.perf_counter() - t1))
+        try:
+            S.request(sock, np.concatenate([requests[0]] * 2)[
+                :len(requests[0]) + 1])
+            out["oversize"] = None
+        except RuntimeError as e:
+            out["oversize"] = str(e)
+        out["shutdown"] = S.shutdown(sock)
+        return out
+    return client
+
+
+def check_tp_serve(run, ranks, client, one, one32, models, cards) -> dict:
+    """A served run: every reply bit-equal to the same mesh's batch CLI
+    on its clips (model rank 0 of each data rank's rows, in order), within
+    TP_PREDICT_OVER_BF16 of one process (replies and the mesh CLI's
+    latents, against the f32 run, as the bf16 run stands from it); exact
+    launches a rank by body in both, the route where the run names one,
+    compiled programs over NCCL on four cards; returns the row of its
+    rates."""
+    axes, batch = _axes(run), run["batch"]
+    path = dict(run["path"], batch_clips=batch)
+    replies = client["replies"]
+    n = [len(r["imgs"]) for r in replies]
+    pred = [False] * (CONTEXT - 1) + [True] * path["pred"]
+    holders = [ranks[d * axes["model"]]["cli"] for d in range(axes["data"])]
+
+    def rows(res_list, key, i):
+        """Batch ``i`` of ``key`` over the ranks of ``res_list``, its first
+        n[i] clips."""
+        x = torch.cat([res[key][i] for res in res_list]).float().numpy()
+        return x.reshape(batch, -1, *x.shape[1:])[:n[i]]
+    equal = all(np.array_equal(r["imgs"], rows(holders, "frames", i)
+                               .astype(np.uint8))
+                for i, r in enumerate(replies))
+    if (not equal or any(r["is_pred"] != pred for r in replies)
+            or "exceeds the compiled" not in (client["oversize"] or "")
+            or not client["shutdown"].get("ok")):
+        raise AssertionError(f"{run['name']}: replies bit-equal to the "
+                             f"mesh's batch CLI: {equal}; is_pred, the "
+                             f"oversize reply {client['oversize']!r}, "
+                             f"shutdown {client['shutdown']}")
+    cat = lambda src, key: np.concatenate([rows(src, key, i)
+                                           for i in range(len(n))])
+    got = {"frames": np.concatenate([r["imgs"] for r in replies]),
+           "latents": cat(holders, "latents")}
+    floor = {k: _rel(cat([one], k), cat([one32], k)) for k in got}
+    far = {k: _rel(got[k], cat([one32], k)) for k in got}
+    log(f"{run['name']}: {len(replies)} replies ({n} clips) bit-equal to "
+        f"the batch CLI under --mesh {run['mesh']}; rel L2 against one "
+        f"process in f32 (one process in bf16 / the replies, the mesh CLI's "
+        f"latents): frames {floor['frames']:.3e} / {far['frames']:.3e}, "
+        f"latents {floor['latents']:.3e} / {far['latents']:.3e} (bound "
+        f"{TP_PREDICT_OVER_BF16}x the first); oversize request: "
+        f"{client['oversize']!r}")
+    if not all(far[k] <= TP_PREDICT_OVER_BF16 * floor[k] for k in far):
+        raise AssertionError(f"{run['name']}: the replies disagree with "
+                             f"one process")
+    for r, res in enumerate(ranks):
+        for part, batches in ((res, 1 + len(replies)),
+                              (res["cli"], len(replies))):
+            expected = expected_launches(models, path, batches)
+            want = dict(expected, flash_attention=expected[
+                "flash_attention"] - part["routes"].get("ring", 0))
+            _check_worker_launches(run, r, part, want)
+            names = {c["name"] for c in part["compiles"]}
+            if cards > 1 and (not TP_PROGRAMS["serve"] <= names
+                              or part["ruled_eager"]
+                              or not res["captures_over"]):
+                raise AssertionError(f"{run['name']}: rank {r} compiled "
+                                     f"{sorted(names)}, eager by the rule "
+                                     f"{part['ruled_eager']}")
+        if run.get("route") and not res["routes"].get(run["route"]):
+            raise AssertionError(f"{run['name']}: the {run['route']} route "
+                                 f"did not run: {res['routes']}")
+    ready = [json.loads(x.split(" ", 1)[1]) for x in ranks[0]["lines"]
+             if x.startswith("SERVE_READY ")]
+    timed = replies[1:]
+    frames = sum(len(r["imgs"]) * path["pred"] for r in timed)
+    secs = sum(r["latency_s"] for r in timed)
+    row = {"ready_s": ready[0]["ready_s"] if ready else None,
+           "latency_s": [r["latency_s"] for r in replies],
+           "client_s": [round(r["wall_s"], 4) for r in replies],
+           "steady_fps": round(frames / secs, 4),
+           "launches_a_rank": {k: ranks[0]["launches"][k]
+                               + ranks[0]["cli"]["launches"][k]
+                               for k in KERNELS},
+           "bodies_a_rank": dict(ranks[0]["bodies"]),
+           "gn_bodies_a_rank": dict(ranks[0]["gn_bodies"]),
+           "routes_a_rank": [res["routes"] for res in ranks]}
+    log(f"{run['name']}: ready_s {row['ready_s']}, request latencies "
+        f"{row['latency_s']} s (the first warm), steady {row['steady_fps']} "
+        f"frames/s ({frames} frames in {secs:.4f} s), launches a rank "
+        f"{row['launches_a_rank']} (server: bodies {row['bodies_a_rank']}, "
+        f"{row['gn_bodies_a_rank']}), routes a rank {row['routes_a_rank']}")
+    return row
+
+
 def _same_run(run, a, b) -> bool:
     """A rank's compiled run against its eager one, bit for bit: what the
     entry point returned and what the spies saw."""
@@ -2952,25 +3393,53 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
     for run in runs or (TP_RUNS if cards == 1 else TP_CARD_RUNS):
         d = os.path.join(workdir, run["name"])
         os.makedirs(d)
+        serving = run["entry"] == "serve"
         with contextlib.chdir(d):
+            requests = serve_requests(run, files) if serving else None
             argv = tp_argv(run, files, data_dir)
-            one = one32 = None
-            if run["entry"] == "predict":
+            # a served run's references: the batch CLI on its clips
+            ref = dict(run, entry="predict") if serving else run
+            one = one32 = split = None
+            if run["entry"] in ("predict", "serve"):
                 with launch_window():
-                    one32 = tp_entry(run, argv + ["--denoise_precision",
+                    one32 = tp_entry(ref, argv + ["--denoise_precision",
                                                   "f32"])[1]
             if run.get("one", True) or "one_config" in run:
-                one = tp_run(run, tp_argv(run, files, data_dir, one=True),
-                             compiled=cards > 1)
+                one = tp_run(ref, tp_argv(run, files, data_dir, one=True),
+                             compiled=cards > 1,
+                             f64=run.get("yardstick") == "f64")
                 gc.collect()
                 torch.cuda.empty_cache()
-            ranks = run_tp_workers(run, argv, d, cards)
+            if run.get("yardstick"):
+                split = tp_run(run, tp_argv(run, files, data_dir, one=True),
+                               compiled=cards > 1,
+                               slices=_axes(run)["data"])
+                gc.collect()
+                torch.cuda.empty_cache()
+            client = None
+            if serving:
+                ranks, client = run_tp_workers(
+                    run, argv, d, cards, serve_client(
+                        requests, run.get("timeout", TP_TIMEOUT)))
+                # four cards: the batch CLI under the same mesh on the
+                # same clips in processes of its own (tp_worker)
+                if cards > 1:
+                    cli = run_tp_workers(dict(
+                        ref, name=run["name"] + "_cli", reference=True),
+                        argv, d, cards)
+                    for res, c in zip(ranks, cli):
+                        res["cli"] = c
+            else:
+                ranks = run_tp_workers(run, argv, d, cards)
         worst = lambda key: max(r[key]["seconds"] if key else r["seconds"]
                                 for r in ranks)
         row = {"mesh": run["mesh"], "cards": cards,
                "rank_s": round(worst(None), 3),
                "rate": _rates(run, ranks[0])}
-        if cards > 1:
+        if serving:
+            row.update(check_tp_serve(run, ranks, client, one, one32,
+                                      models, cards))
+        elif cards > 1:
             row.update(eager_rank_s=round(worst("eager"), 3),
                        eager_rate=_rates(run, ranks[0]["eager"]))
         if one is not None:
@@ -2987,10 +3456,12 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
             if any(r["captures_over"] or r["compiles"] for r in ranks):
                 raise AssertionError(f"{run['name']}: a gloo worker "
                                      f"compiled a program")
-        else:
+        elif not serving:
             check_tp_compiled(run, ranks)
         checked = one if run.get("one", True) else None
-        if run["entry"] == "predict":
+        if serving:
+            pass                           # check_tp_serve, above
+        elif run["entry"] == "predict":
             batches = -(-run["clips"] // run.get("batch", TP_PREDICT_PATH[
                 "batch_clips"]))
             expected = expected_launches(models, TP_PREDICT_PATH, batches)
@@ -3001,18 +3472,24 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
                          expected_launches(models, EVAL_PATHS[0],
                                            TP_FVD_CLIPS // EVAL_PATHS[0][
                                                "batch_clips"]))
+        elif run.get("yardstick"):
+            check_tp_train_yardstick(run, ranks, one, split,
+                                     DATA_YML["LR"][0])
         else:
             check_tp_train(run, ranks, checked, DATA_YML["LR"][0])
+        if run["entry"] == "train":
             # the f32 flagship's whole states (5.3 GB each) leave the disk
-            for res in [ranks[0], ranks[0].get("eager"), one]:
+            for res in [ranks[0], ranks[0].get("eager"), one, split]:
                 if res is not None:
                     shutil.rmtree(res["checkpoint"])
         for res in ranks:
-            eager = res["eager"] if cards > 1 else res
-            sigs.update(eager["sigs"])
-            BODY_LAUNCHES.update(res["bodies"])
-            for k in KERNELS:
-                total[k] += res["launches"][k]
+            sigs.update(res.get("eager", res)["sigs"])
+            for part in (res, res.get("cli")):
+                if part is None:
+                    continue
+                BODY_LAUNCHES.update(part["bodies"])
+                for k in KERNELS:
+                    total[k] += part["launches"][k]
     # every rank path that reaches a kernel runs it in bf16 on the NHWC
     # body; f32 and the NCHW body are checked at every full-width shape in
     # phase 3, and are left out here, and these rows are not timed (the
@@ -3327,17 +3804,21 @@ def phase_cli(per_batch, checkpoint, workdir) -> dict:
 
 
 BENCH_REPEATS = 2      # timed requests a scenario (the CLI takes 5)
+# one scenario of each kind (pixel serving, denoised serving, training):
+# phases 4, 7 and 8 drive every path of the other seven, with exact launches
+BENCH_SCENARIOS = ("pixel_ar16", "vae_denoise_ar4_8streams",
+                   "train_flagship")
 
 
 def phase_bench() -> dict:
-    """The benchmark's ten scenarios in this process; a scenario that fails
-    fails the run. Returns their launches (every window of both passes),
-    the flash ones by body added to ``BODY_LAUNCHES``."""
+    """The benchmark's BENCH_SCENARIOS in this process; a scenario that
+    fails fails the run. Returns their launches (every window of both
+    passes), the flash ones by body added to ``BODY_LAUNCHES``."""
     from sd_video_gen_tpu_torch import bench
     t0 = time.perf_counter()
     results = {}
-    failed = bench.run(bench.select([]), repeats=BENCH_REPEATS,
-                       results=results)
+    failed = bench.run([n for n in bench.select([]) if n in BENCH_SCENARIOS],
+                       repeats=BENCH_REPEATS, results=results)
     if failed:
         raise AssertionError(f"bench: scenarios failed: {failed}")
     total = {k: 0 for k in KERNELS}

@@ -140,6 +140,7 @@ def build_parser():
 
 
 @torch.inference_mode()
+@multihost.releases_programs
 def main(argv=None):
     strict_f32()
     from sd_video_gen_tpu_torch.data import BatchLoader

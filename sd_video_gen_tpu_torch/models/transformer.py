@@ -61,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_video_gen_tpu_torch.models.positional import sinusoidal_positions
+from sd_video_gen_tpu_torch.ops.losses import wide
 from sd_video_gen_tpu_torch.parallel.constrain import (copy_to_model,
                                                        row_parallel)
 from sd_video_gen_tpu_torch.parallel.sharding import check_split
@@ -188,12 +189,12 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(B, Tq, H, hd)
         k = k.reshape(B, -1, H, hd)
         v = v.reshape(B, -1, H, hd)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        logits = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k))
         logits = logits / math.sqrt(hd)
         if mask is not None:
-            logits = logits + mask.float()
+            logits = logits + mask.to(logits.dtype)
         weights = ctx.local.drop(torch.softmax(logits, dim=-1)).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+        out = torch.einsum("bhqk,bkhd->bqhd", wide(weights), wide(v))
         out = out.reshape(B, Tq, D)
         if self.shard is None:
             return ctx.linear(self.out_proj, out)
@@ -347,4 +348,4 @@ class FrameTransformer(nn.Module):
         for layer in self.transformer.decoder.layers:
             x = layer(x, memory, tgt_mask, ctx)
         x = _ln(self.transformer.decoder.norm, x)
-        return ctx.linear(self.out, x).float()
+        return wide(ctx.linear(self.out, x))

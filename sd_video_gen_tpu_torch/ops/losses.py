@@ -12,7 +12,8 @@
 
 All take batch-first ``(B, K, latent_dim)`` tensors, ``latent_dim = 4*h*w``
 a flattened SD frame latent, and compute in float32 whatever the model's
-compute dtype.
+compute dtype (``wide``: in float64 where the inputs are, the f64
+reference step of ``tools/split_check.py``).
 """
 
 from __future__ import annotations
@@ -22,12 +23,19 @@ import dataclasses
 import torch
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where it is float64: the precision the
+    losses and the FrameTransformer's attention compute in (bf16 and f32
+    inputs give exactly ``x.float()``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred.float() - target.float()).square().mean()
+    return (wide(pred) - wide(target)).square().mean()
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred.float() - target.float()).abs().mean()
+    return (wide(pred) - wide(target)).abs().mean()
 
 
 def _to_spatial(x: torch.Tensor) -> torch.Tensor:
@@ -38,8 +46,8 @@ def _to_spatial(x: torch.Tensor) -> torch.Tensor:
 
 def gradient_difference_loss(pred: torch.Tensor, target: torch.Tensor,
                              alpha: float = 1.0) -> torch.Tensor:
-    x = _to_spatial(pred.float())
-    y = _to_spatial(target.float())
+    x = _to_spatial(wide(pred))
+    y = _to_spatial(wide(target))
     gvx = x[..., 1:, :] - x[..., :-1, :]
     gvy = y[..., 1:, :] - y[..., :-1, :]
     ghx = x[..., :, 1:] - x[..., :, :-1]
@@ -54,8 +62,8 @@ def bipatch_nce_loss(pred: torch.Tensor, target: torch.Tensor,
                      temperature: float = 0.07) -> torch.Tensor:
     """pred / target: (B, K, latent_dim); inside, (B*K, h*w, 4) patch
     features."""
-    p = _to_spatial(pred.float())                       # (B, K, C, h, w)
-    g = _to_spatial(target.float())
+    p = _to_spatial(wide(pred))                       # (B, K, C, h, w)
+    g = _to_spatial(wide(target))
     B, K, C, h, w = p.shape
     p = p.reshape(B * K, C, h * w).transpose(1, 2)      # (M, P, C)
     g = g.reshape(B * K, C, h * w).transpose(1, 2)
@@ -103,7 +111,7 @@ def composite_loss(pred: torch.Tensor, target: torch.Tensor,
     logger, under the keys ``mse``, ``l1``, ``gdl``, ``contrastive`` (those
     switched on) and ``total``."""
     comps = {}
-    total = torch.zeros((), dtype=torch.float32, device=pred.device)
+    total = torch.zeros((), dtype=wide(pred).dtype, device=pred.device)
     if w.use_mse:
         comps["mse"] = mse_loss(pred, target)
         total = total + comps["mse"]

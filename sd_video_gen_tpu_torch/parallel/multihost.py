@@ -15,12 +15,32 @@ a run can show how often it reduced. The all-reduce runs on the device
 without a host sync (a flat buffer per dtype, the collective, the division
 in place), so a compiled step over an NCCL group holds it in its graph
 (``utils/jit.py``), which then adds its count once per replay.
+
+A server across the group (``predict/serve.py``) takes each request from
+rank 0 by ``broadcast`` (the group's own backend, outside the programs,
+its wait bounded on the host), and runs inside ``end_group_on_failure``:
+a failure on any rank ends every rank with exit code 1.
+
+An entry point run in a group (the trainer's, predict's and the FVD CLI's
+``main``) frees its compiled programs before it returns
+(``releases_programs``): a CUDA graph that holds an NCCL collective keeps
+that communicator from being destroyed (NCCL's destroy waits until every
+such graph is gone), and an ``SDPipeline`` and its programs form a
+reference cycle that only the cyclic collector frees. The group can then be
+destroyed by whoever made it, or at exit.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
+import gc
 import os
+import sys
+import threading
+import time
+import traceback
 
 import numpy as np
 import torch
@@ -153,3 +173,108 @@ def barrier() -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def _collective_device(group=None) -> torch.device:
+    """Where ``group``'s backend takes its tensors: this rank's card for
+    NCCL, the host for gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast(tensor: torch.Tensor, timeout_s: float | None = None,
+              group=None) -> torch.Tensor:
+    """Rank 0's ``tensor`` on every rank of ``group`` (default: all), each
+    rank passing one of the same shape and dtype: a copy on the group's
+    device (``_collective_device``), the input untouched. The host waits
+    for it at most ``timeout_s`` seconds (None: without a bound) and
+    raises ``TimeoutError`` after that: a rank waiting on a peer that will
+    not send must not hang. Without a group, ``tensor`` itself."""
+    if not dist.is_initialized():
+        return tensor
+    buf = tensor.to(_collective_device(group), copy=True)
+    work = dist.broadcast(buf, src=0, group=group, async_op=True)
+    if timeout_s is not None:
+        end = time.monotonic() + timeout_s
+        while not work.is_completed():
+            if time.monotonic() > end:
+                raise TimeoutError(f"no broadcast from rank 0 in "
+                                   f"{timeout_s} s")
+            time.sleep(1e-3)
+    work.wait()
+    return buf
+
+
+def broadcast_ints(values, length: int, timeout_s: float | None = None,
+                   group=None) -> list[int]:
+    """Rank 0's ``values`` (at most ``length`` ints; the others pass None)
+    on every rank, padded with 0 to ``length``: a small header, by
+    ``broadcast``."""
+    head = torch.zeros(length, dtype=torch.int64)
+    if values is not None:
+        head[:len(values)] = torch.tensor(list(values), dtype=torch.int64)
+    return broadcast(head, timeout_s, group).cpu().tolist()
+
+
+_ABORT_KEY = "sdvg/abort"
+
+
+def _end(why: str) -> None:
+    print(f"rank {process_index()}: {why}; ending this process",
+          file=sys.stderr, flush=True)
+    os._exit(1)
+
+
+@contextlib.contextmanager
+def end_group_on_failure(poll_s: float = 0.2):
+    """Inside it, an exception on any rank ends every rank of the group
+    with exit code 1. The failing rank marks the group's store and exits;
+    a thread on every rank that finds the mark ends its process, wherever
+    its main thread waits (a collective of a group that lost a rank never
+    returns, and after a failed collective the communicator cannot be
+    trusted). Both exits are ``os._exit``: an orderly one could wait on
+    the communicators. Without a group it does nothing."""
+    if not dist.is_initialized():
+        yield
+        return
+    store = dist.distributed_c10d._get_default_store()
+    stop = threading.Event()
+
+    def watch():
+        while not stop.wait(poll_s):
+            if store.check([_ABORT_KEY]):
+                _end(f"rank {store.get(_ABORT_KEY).decode()} failed")
+    watcher = threading.Thread(target=watch, daemon=True,
+                               name="end_group_on_failure")
+    watcher.start()
+    try:
+        yield
+    except Exception:
+        traceback.print_exc()
+        store.set(_ABORT_KEY, str(process_index()))
+        _end("failed")
+    finally:
+        stop.set()
+        watcher.join()
+
+
+def release_programs() -> None:
+    """Free what only reference cycles still hold (an entry point's
+    compiled programs, once it has returned) and wait for this rank's card:
+    after it, no graph of a returned entry point holds a communicator."""
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def releases_programs(main):
+    """``main`` (an entry point) followed, in a process group, by
+    ``release_programs`` once its frame, and every name of it, is gone."""
+    @functools.wraps(main)
+    def run(*args, **kwargs):
+        out = main(*args, **kwargs)
+        if dist.is_initialized():
+            release_programs()
+        return out
+    return run

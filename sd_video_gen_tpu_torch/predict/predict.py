@@ -57,7 +57,8 @@ are split over the model group by the tensor-parallel rules
 (``parallel/sharding.py``). The refiner's noise is drawn for the whole
 batch and cut to the rank's rows, so the run refines each clip as one
 process would. Rank 0 gathers the decoded clips and alone writes and
-prints.
+prints. ``--serve SOCK`` under ``--mesh`` serves across the group the same
+way (``predict/serve.py``): each request's rows are cut as a batch's.
 """
 
 from __future__ import annotations
@@ -384,13 +385,11 @@ def join_run(parser, args):
     return layout
 
 
+@multihost.releases_programs
 def main(argv=None):
     strict_f32()
     parser = build_predict_parser()
     args = parser.parse_args(argv)
-    if (args.mesh or args.multihost) and args.serve:
-        parser.error("--serve answers one socket from one process: it takes "
-                     "no --mesh or --multihost")
     if args.reference_pe and (args.int8 or args.rollout == "cached"):
         parser.error("--reference_pe is the full-forward compat path "
                      "(incompatible with --int8 / --rollout cached)")
@@ -433,10 +432,12 @@ def main(argv=None):
 
     if args.serve:
         from sd_video_gen_tpu_torch.predict.serve import serve
+        # across a group every rank serves its rows; rank 0 answers
         serve(args.serve, predict, decode,
               batch_clips=args.batch_clips,
               frames_per_clip=cfg.frames_per_clip,
-              frame_size=cfg.frame_size, embedder=embedder)
+              frame_size=cfg.frame_size, embedder=embedder,
+              layout=layout, window=window)
         return
 
     from sd_video_gen_tpu_torch.train.trainer import build_dataset

@@ -822,6 +822,7 @@ def build_train_parser():
     return add_device_flag(add_multihost_flags(parser))
 
 
+@multihost.releases_programs
 def main(argv=None):
     """The trainer's CLI; returns the fit history of each grid point."""
     strict_f32()

@@ -55,6 +55,19 @@ RECORD_KEYS = {
     *B.DEVICE_FIELDS}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for these tiny CPU runs: alone they run as fast
+    as on many, and they do not stall when other processes hold the cores,
+    as many threads do (each of the scenarios' small parallel regions then
+    waits on a descheduled thread, enough to take the whole bench past
+    ``bench.main``'s time budget in a parallel run of the suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_bench():
     """The repository's JAX bench, imported as test_bench_consistency does
