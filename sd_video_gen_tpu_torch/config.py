@@ -321,6 +321,15 @@ def add_device_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def add_trace_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--trace_dir``, shared by the predict and training CLIs."""
+    p.add_argument("--trace_dir", type=str, default=None, metavar="DIR",
+                   help="profile the whole run, every thread (a server's "
+                        "too), host and device, and write its Chrome trace "
+                        "to DIR/trace.json (utils/profiling.trace)")
+    return p
+
+
 def parse_config_args(argv: Sequence[str] | None = None):
     """Reference-compatible entry: returns (Config, argparse.Namespace)."""
     args = build_arg_parser().parse_args(argv)

@@ -39,8 +39,9 @@ CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
 
 # Host seconds spent blocked in fl_next_batch and the batches it handed over,
-# summed over every loader of this process (what a training run waits for
-# its input; chip_smoke.py reads it around one).
+# summed over every loader of this process: what a training run waits for
+# its input. chip_smoke.py's data phase clears it before a native-cache
+# training run and reports it after (``run_native_path``).
 NEXT_BATCH = collections.Counter()
 
 _lib = None

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from sd_video_gen_tpu_torch.diffusion.sd import SDPipeline
 from sd_video_gen_tpu_torch.diffusion.vae_codec import VAECodec
+from sd_video_gen_tpu_torch.utils import profiling
 
 
 def resize_nearest(frames_u8: torch.Tensor, size: int) -> torch.Tensor:
@@ -116,7 +117,10 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
 
     The empty-prompt embedding is computed once, here. ``noise_fn(step,
     shape)`` must depend on (step, shape) alone: each draw is taken once
-    (``draw_once``) unless it already is.
+    (``draw_once``) unless it already is. Its stage marks
+    (``utils/profiling.mark``): ``vae`` (decode, upscale, encode), ``unet``
+    (the denoise), ``vae`` (decode, downscale, encode); at the native grid
+    ``unet`` alone.
     """
     vae_lo = VAECodec(frame_size, pipe.vae)
     uncond = pipe.uncond_embeddings(1)
@@ -131,6 +135,7 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
         def refine_native(flat_latents: torch.Tensor,
                           step: int = 0) -> torch.Tensor:
             B = flat_latents.shape[0]
+            profiling.mark("unet", flat_latents.device)
             emb = uncond[:1].expand(2 * B, -1, -1)
             noise = noise_fn(step, (B, h_lo, h_lo, c)).to(flat_latents.device)
             den = pipe.i2i_scan(flat_latents.reshape(B, c, h_lo, h_lo), emb,
@@ -146,14 +151,17 @@ def make_denoise_refiner(pipe: SDPipeline, frame_size: int, start_step: int,
 
     def refine(flat_latents: torch.Tensor, step: int = 0) -> torch.Tensor:
         B = flat_latents.shape[0]
+        profiling.mark("vae", flat_latents.device)
         emb = uncond[:1].expand(2 * B, -1, -1)
         img_lo = vae_lo.decode_latents(flat_latents)            # (B, lo, lo, 3)
         img_hi = resize_nearest(img_lo, hi_res)
         lat_hi = vae_hi.encode_frames(img_hi[:, None]).reshape(B, lc, h, h)
+        profiling.mark("unet", lat_hi.device)
         noise = noise_fn(step, (B, h, h, lc)).to(lat_hi.device)
         den = pipe.i2i_scan(lat_hi, emb, start_step, num_inference_steps,
                             noise=noise.permute(0, 3, 1, 2), sampler=sampler,
                             solver_steps=solver_steps)
+        profiling.mark("vae", den.device)
         img_den = vae_hi.decode_latents(den.reshape(B, -1))     # (B, hi, hi, 3)
         img_back = resize_nearest(img_den, frame_size)
         return vae_lo.encode_frames(img_back[:, None])[:, 0]

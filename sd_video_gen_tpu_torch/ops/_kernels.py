@@ -11,11 +11,14 @@ test suite imports every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper calls
 ``count_launch`` where it launches its kernel and nowhere else, so a run can
-show which kernels its main path went through. ``CALLS`` counts dispatcher
-calls by kernel name, kernel or plain version (``record``). A CUDA graph
-replay runs no wrapper: ``utils/jit.py`` keeps the counts a capture saw
-(``counters``: these, and the collectives and tensor-parallel routes a
-sharded program counts) with its graph and adds them once per replay.
+show which kernels its main path went through. The stage marks
+(``csrc/stage_marks.cu``, launched by ``utils/profiling.mark``) are empty
+kernels that only name a trace's stages: nothing counts them. ``CALLS``
+counts dispatcher calls by kernel name, kernel or plain version
+(``record``). A CUDA graph replay runs no wrapper: ``utils/jit.py`` keeps
+the counts a capture saw (``counters``: these, and the collectives and
+tensor-parallel routes a sharded program counts) with its graph and adds
+them once per replay.
 
 ``force_reference`` sends every dispatcher of this package (``attention``,
 ``group_norm``) to its plain version at once: the on-card comparison of a
@@ -222,6 +225,8 @@ def library() -> ctypes.CDLL:
             lib.sdvg_groupnorm_silu_nhwc.argtypes = [
                 p, p, p, p, p, ll, i, i, ll, i, ctypes.c_float, i, i, i, p]
             lib.sdvg_groupnorm_silu_nhwc.restype = i
+            lib.sdvg_stage_mark.argtypes = [i, p]
+            lib.sdvg_stage_mark.restype = i
             lib.sdvg_error_string.argtypes = [i]
             lib.sdvg_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -37,6 +37,7 @@ from sd_video_gen_tpu_torch.models.positional import sinusoidal_positions
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
 from sd_video_gen_tpu_torch.ops.quantized import (param_tree, qdense,
                                                   quantize_frame_transformer)
+from sd_video_gen_tpu_torch.utils import profiling
 from sd_video_gen_tpu_torch.utils.jit import jit
 
 _LN_EPS = 1e-5  # torch nn.Transformer default, as in models/transformer.py
@@ -164,6 +165,7 @@ def cached_rollout(cfg, params, context: torch.Tensor, pred_frames: int,
         return e + pos[None, t_start:t_start + e.shape[1]]
 
     # -- encoder: once -------------------------------------------------------
+    profiling.mark("rollout", dev)
     h = embed(context, 0)
     for lp in p["enc"]:
         h = _enc_layer(lp, h, H, dtype)
@@ -195,6 +197,7 @@ def cached_rollout(cfg, params, context: torch.Tensor, pred_frames: int,
     # -- incremental steps: step i takes prediction i at position T0 - 1 + i -
     slots = torch.arange(Tmax, device=dev)
     for i in range(1, pred_frames):
+        profiling.mark("rollout", dev)
         idx = T0 - 1 + i
         x = _dense(p["embedding"], latent, dtype) * scale
         x = x + pos[None, idx:idx + 1]

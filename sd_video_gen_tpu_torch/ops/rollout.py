@@ -19,11 +19,14 @@ from typing import Callable, Optional
 import torch
 
 from sd_video_gen_tpu_torch.ops.masks import causal_mask
+from sd_video_gen_tpu_torch.utils import profiling
 from sd_video_gen_tpu_torch.utils.jit import jit
 
 
 def _predict_next(model, seq, refine_fn, model_kwargs, step: int):
-    """Full-sequence forward; take the last predicted latent."""
+    """Full-sequence forward; take the last predicted latent. The forward
+    is the ``rollout`` stage (``utils/profiling.mark``)."""
+    profiling.mark("rollout", seq.device)
     mask = causal_mask(seq.shape[1], device=seq.device)
     nxt = model(seq, seq, tgt_mask=mask, **model_kwargs)[:, -1]
     if refine_fn is not None:

@@ -35,7 +35,7 @@ The CLI (``main``, every flag of the JAX package's plus ``--device``):
       --folder <dir> --config <cfg> --pred_frames 4 --save_output True \
       [--codec vae --vae_weights vae.pt] [--denoise True --unet_weights ...]
       [--rollout cached] [--int8 True] [--timing] [--serve SOCK] \
-      [--device cpu]
+      [--trace_dir DIR] [--device cpu]
 
 reads the model from the port's checkpoint directory
 ``<checkpoint_dir>/<config>_<index>_<mode>`` (``train/checkpoint.py``), or a
@@ -46,7 +46,9 @@ red border on predicted frames. The loop is pipelined one batch deep: batch
 i is decoded and written while batch i + 1 is queued on the device.
 ``--denoise`` refines every predicted latent at 512px; with it the codec and
 the refiner share one VAE at ``--denoise_precision`` (the JAX CLI keeps a
-second, f32 copy for the codec).
+second, f32 copy for the codec). ``--trace_dir DIR`` profiles the whole
+run over every thread (a server's spans too) and writes its Chrome trace
+under DIR (``utils/profiling.trace``).
 
 Across processes (``--multihost``, or torchrun; one per device), laid out
 by ``--mesh data=D,model=M`` (``parallel/mesh.py``; the JAX CLI's
@@ -74,8 +76,8 @@ import torch
 from sd_video_gen_tpu_torch.codecs import make_codec
 from sd_video_gen_tpu_torch.config import (add_device_flag,
                                            add_multihost_flags,
-                                           build_arg_parser, load_config,
-                                           strict_f32)
+                                           add_trace_flag, build_arg_parser,
+                                           load_config, strict_f32)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.identity import IdentityModel
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -87,6 +89,7 @@ from sd_video_gen_tpu_torch.ops.quantized import (quantize_frame_transformer,
 from sd_video_gen_tpu_torch.ops.rollout import ar_rollout
 from sd_video_gen_tpu_torch.parallel import multihost
 from sd_video_gen_tpu_torch.parallel.mesh import make_layout
+from sd_video_gen_tpu_torch.utils import profiling
 from sd_video_gen_tpu_torch.utils.jit import jit
 
 
@@ -146,6 +149,7 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
 
     def predict_impl(frames, text_embeds, window_key=None):
         # window_key only keys the program: the refiner reads the window
+        profiling.mark("vae", frames.device)
         latents = codec.encode_batch(frames, use_sos=True)
         kwargs = {"text_embeds": text_embeds} if text_embeds is not None \
             else {}
@@ -154,6 +158,7 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
             # future frames 1..k, so fewer than k means the FIRST pred_frames
             # of that span; learned_tgt ignores tgt and decodes its queries
             y_in = latents[:, 1:]                   # drop SOS
+            profiling.mark("rollout", y_in.device)
             out = model(y_in, y_in, tgt_mask=None, **kwargs)
             k = future_horizon or pred_frames
             preds = out[:, -k:][:, :pred_frames]
@@ -166,6 +171,7 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
         else:
             preds = ar_rollout(apply_fn, latents, pred_frames, window=window,
                                refine_fn=refiner, model_kwargs=kwargs)
+        profiling.mark("end", preds.device)
         return latents[:, 1:], preds
 
     impl = jit(predict_impl, name="predict_impl", groups=groups)
@@ -175,8 +181,9 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
         frames = (frames_u8 if isinstance(frames_u8, torch.Tensor) else
                   torch.from_numpy(np.array(frames_u8, np.uint8)))
         # the host-to-device copy, outside the compiled program
-        return impl(frames.to(codec.device), text_embeds,
-                    None if rows is None else rows.key())
+        with profiling.span("predict.h2d"):
+            frames = frames.to(codec.device)
+        return impl(frames, text_embeds, None if rows is None else rows.key())
 
     predict.impl = impl
     return predict
@@ -185,8 +192,15 @@ def make_predict_fn(model: torch.nn.Module, codec, pred_frames: int,
 def make_decode_fn(codec, groups=()):
     """``codec.decode_latents`` as one compiled program per shape (the JAX
     CLI's ``decode_impl``: an eager VAE decode launches hundreds of kernels
-    a batch); ``groups``: those a split VAE's collectives run over."""
-    return jit(codec.decode_latents, name="decode_impl", groups=groups)
+    a batch); ``groups``: those a split VAE's collectives run over. Its
+    stage marks (``utils/profiling.mark``): ``vae``, ``end``."""
+    def decode_impl(latents):
+        profiling.mark("vae", latents.device)
+        out = codec.decode_latents(latents)
+        profiling.mark("end", out.device)
+        return out
+
+    return jit(decode_impl, name="decode_impl", groups=groups)
 
 
 def load_model_params(cfg, args, model: torch.nn.Module,
@@ -367,7 +381,7 @@ def build_predict_parser():
                         help="persistent serving: warm up once, print "
                              "SERVE_READY and answer clip batches on this "
                              "Unix socket until shutdown (predict/serve.py)")
-    return parser
+    return add_trace_flag(parser)
 
 
 def join_run(parser, args):
@@ -402,6 +416,12 @@ def main(argv=None):
         parser.error("--int8 quantizes the transformer "
                      "(incompatible with --naive)")
     layout = join_run(parser, args)
+    with profiling.trace(args.trace_dir):
+        _predict(args, layout)
+
+
+def _predict(args, layout):
+    """``main`` once the flags are read and the group joined."""
     cfg = load_config(args.config, args.config_dir)
     device = multihost.rank_device(default_device(args.device))
     lead = multihost.is_coordinator()

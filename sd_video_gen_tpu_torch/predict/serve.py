@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from sd_video_gen_tpu_torch.parallel import multihost
+from sd_video_gen_tpu_torch.utils import profiling
 
 _LEN = struct.Struct(">Q")
 # across a group: rank 0's idle header every IDLE_S seconds; a rank gives
@@ -104,7 +105,8 @@ def request(sock_path: str, frames: np.ndarray,
             timeout_s: float = 600.0) -> tuple[np.ndarray, list[bool], dict]:
     """One round trip: uint8 frames (B, T, H, W, 3), and class ids for a
     text-mode server, -> ``(images (B, T_out, H, W, 3) uint8, is_pred flags,
-    header)``."""
+    header)``. The round trip, connect to parsed reply, is the span
+    ``serve.request``."""
     frames = np.ascontiguousarray(frames, dtype=np.uint8)
     if frames.ndim != 5 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be (B,T,H,W,3) uint8, got "
@@ -112,10 +114,11 @@ def request(sock_path: str, frames: np.ndarray,
     header = {"op": "predict", "shape": list(frames.shape)}
     if labels is not None:
         header["labels"] = [int(x) for x in labels]
-    resp, payload = _call(sock_path, header, frames.tobytes(), timeout_s)
-    if "error" in resp:
-        raise RuntimeError(f"server error: {resp['error']}")
-    imgs = np.frombuffer(payload, np.uint8).reshape(resp["shape"])
+    with profiling.span("serve.request"):
+        resp, payload = _call(sock_path, header, frames.tobytes(), timeout_s)
+        if "error" in resp:
+            raise RuntimeError(f"server error: {resp['error']}")
+        imgs = np.frombuffer(payload, np.uint8).reshape(resp["shape"])
     return imgs, resp["is_pred"], resp
 
 
@@ -258,11 +261,24 @@ def _follow(run_batch, shape, batch_clips) -> None:
             run_batch(frames, labels if has_labels else None, n_items)
 
 
+def _unpack(header: dict, payload: bytes, pad):
+    """A predict request's ``(clips, padded frames, labels)``, or the
+    reason it is refused."""
+    try:
+        frames = np.frombuffer(payload, np.uint8).reshape(header["shape"])
+        return (frames.shape[0], *pad(frames, header.get("labels")))
+    except Exception as e:  # refused: answered with the reason
+        return str(e)
+
+
 def _answer(sock_path, ready_s, pad, run_batch, shape, idle=None) -> None:
     """Rank 0 (or the one process): bind ``sock_path``, print
     ``SERVE_READY`` and answer until ``shutdown``. ``idle`` (across a group)
     broadcasts an op to the other ranks: the idle header while no request
-    comes, and ``shutdown``."""
+    comes, and ``shutdown``. A request's spans: ``serve.recv`` (receive,
+    unpack, pad), ``serve.run`` (``run_batch``), ``serve.send`` (the
+    reply); a profiler sees them only where it records this thread
+    (``utils/profiling.trace``)."""
     batch_clips, frames_per_clip, frame_size = shape[:3]
     if os.path.exists(sock_path):
         os.unlink(sock_path)
@@ -287,7 +303,11 @@ def _answer(sock_path, ready_s, pad, run_batch, shape, idle=None) -> None:
             with conn:
                 conn.settimeout(None if idle is None else CLIENT_S)
                 try:
-                    header, payload = _recv_msg(conn)
+                    with profiling.span("serve.recv"):
+                        header, payload = _recv_msg(conn)
+                        t1 = time.perf_counter()
+                        if header.get("op") == "predict":
+                            request = _unpack(header, payload, pad)
                 except (OSError, json.JSONDecodeError) as e:
                     print(f"serve: bad request dropped ({e})", flush=True)
                     continue
@@ -299,28 +319,26 @@ def _answer(sock_path, ready_s, pad, run_batch, shape, idle=None) -> None:
                             idle(OP_SHUTDOWN)
                         return
                 elif op == "predict":
-                    t1 = time.perf_counter()
-                    try:
-                        frames = np.frombuffer(payload, np.uint8).reshape(
-                            header["shape"])
-                        frames_p, labels = pad(frames, header.get("labels"))
-                    except Exception as e:  # refused: nothing ran
-                        _send_msg(conn, {"error": str(e)})
+                    if isinstance(request, str):    # refused: nothing ran
+                        _send_msg(conn, {"error": request})
                         continue
+                    n_items, frames_p, labels = request
                     try:
-                        imgs, is_pred = run_batch(frames_p, labels,
-                                                  frames.shape[0])
+                        with profiling.span("serve.run"):
+                            imgs, is_pred = run_batch(frames_p, labels,
+                                                      n_items)
                     except Exception as e:  # report, keep serving
                         if idle is not None:
                             raise           # the group ends (serve)
                         traceback.print_exc()
                         _send_msg(conn, {"error": str(e)})
                         continue
-                    n_served += frames.shape[0]
-                    _send_msg(conn, {
-                        "shape": list(imgs.shape), "is_pred": is_pred,
-                        "latency_s": round(time.perf_counter() - t1, 4)},
-                        imgs.tobytes())
+                    n_served += n_items
+                    with profiling.span("serve.send"):
+                        _send_msg(conn, {
+                            "shape": list(imgs.shape), "is_pred": is_pred,
+                            "latency_s": round(time.perf_counter() - t1, 4)},
+                            imgs.tobytes())
                 else:
                     _send_msg(conn, {"error": f"unknown op {op!r}"})
     finally:

@@ -13,9 +13,10 @@ trainer's own metrics JSONL (``step_ms_*`` from
 
 The first epoch absorbs the start-up (its p95 is that step); the warm
 epochs' ``step_ms_mean`` is the steady CLI rate. ``StepTimer`` clocks the
-host from the batch's copy to the step's return, without a synchronise: the
-host runs ahead of the card by up to its launch queue, and the epoch's last
-steps drain inside the untimed epoch-end metrics fetch. Read the result as
+host's ``train.step`` span, from the batch's copy to the step's return and
+its loss sums, without a synchronise: the host runs ahead of the card by
+up to its launch queue, and the epoch's last steps drain inside the
+untimed epoch-end metrics fetch. Read the result as
 "the CLI adds nothing over the benchmark's rate" where the step is host-bound
 (``train_flagship`` at batch 6 is), not as a device time.
 

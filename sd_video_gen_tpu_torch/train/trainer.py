@@ -89,8 +89,9 @@ import torch
 from sd_video_gen_tpu_torch.codecs import add_sos, make_codec
 from sd_video_gen_tpu_torch.config import (Config, add_device_flag,
                                            add_multihost_flags,
-                                           build_arg_parser, load_config,
-                                           strict_f32, sweep_grid)
+                                           add_trace_flag, build_arg_parser,
+                                           load_config, strict_f32,
+                                           sweep_grid)
 from sd_video_gen_tpu_torch.models import build, default_device
 from sd_video_gen_tpu_torch.models.text_embed import ClassNameEmbedder
 from sd_video_gen_tpu_torch.models.transformer import (FrameTransformer,
@@ -103,6 +104,7 @@ from sd_video_gen_tpu_torch.parallel.mesh import make_layout, parse_mesh_spec
 from sd_video_gen_tpu_torch.train import checkpoint as ckpt
 from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
 from sd_video_gen_tpu_torch.train.optim import Adam
+from sd_video_gen_tpu_torch.utils import profiling
 from sd_video_gen_tpu_torch.utils.jit import jit
 
 PRECISIONS = ("f32", "bf16", "bf16_full")
@@ -244,7 +246,9 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     program (``step_fn.impl``: a CUDA graph per batch shape on the card,
     its state donated, its dropout generators registered, its collectives
     over ``layout``'s groups inside it, or eager where the backend cannot
-    capture over them). In a process group
+    capture over them; its stage marks, ``utils/profiling.mark``:
+    ``forward``, ``backward``, ``exchange`` in a process group,
+    ``optimizer``, ``end``). In a process group
     the gradients are averaged over the ``data`` group of ``layout``
     (``parallel/mesh.py``; default: every process on ``data``), one
     all-reduce a step, before the update, and the data rank salts the
@@ -265,18 +269,24 @@ def make_train_step(model, codec, loss_w: LossWeights, cfg: Config,
     def step_impl(trees, frames, text_embeds):
         params, opt_state = trees
         names = list(params)
+        dev = frames.device
         with torch.enable_grad():
+            profiling.mark("forward", dev)
             latents = encode_or_passthrough(codec, frames, use_sos)
             pred_k, target_k = _predictions_and_targets(
                 model, latents, k, mode, generator, text_embeds, local)
             total, comps = composite_loss(pred_k.float(), target_k.float(),
                                           loss_w)
+            profiling.mark("backward", dev)
             grads = torch.autograd.grad(total, [params[n] for n in names],
                                         allow_unused=True)
         if layout.data_group is not None:
+            profiling.mark("exchange", dev)
             multihost.all_reduce_mean([g for g in grads if g is not None],
                                       "grads", layout.data_group)
+        profiling.mark("optimizer", dev)
         opt.update(params, dict(zip(names, grads)), opt_state)
+        profiling.mark("end", dev)
         return {name: v.detach() for name, v in comps.items()}
 
     impl = jit(step_impl, name="step_impl", donate_argnums=0, grad=True,
@@ -558,18 +568,23 @@ class Trainer:
         return sums
 
     def train_loop(self, loader, seed: int = 0):
-        from sd_video_gen_tpu_torch.utils.profiling import StepTimer
-        timer = StepTimer()
+        """One epoch of ``loader``'s batches; each step is the span
+        ``train.step`` (timed by ``StepTimer``: the log's ``step_ms_*``)
+        holding ``train.feed`` (the batch's copy to the device), the step
+        and ``train.losses``."""
+        timer = profiling.StepTimer()
         keys, sums, nb = None, None, 0
         for indices, frames in loader:
-            timer.start()
-            frames = multihost.global_batch_from_local(frames, self.device)
-            self.state, comps = self._step_fn(self.state, frames, seed,
-                                              self._texts(indices))
-            timer.stop()
-            keys = list(comps)
-            stacked = torch.stack([comps[k] for k in keys])
-            sums = stacked if sums is None else sums + stacked
+            with timer.step():
+                with profiling.span("train.feed"):
+                    frames = multihost.global_batch_from_local(frames,
+                                                               self.device)
+                self.state, comps = self._step_fn(self.state, frames, seed,
+                                                  self._texts(indices))
+                with profiling.span("train.losses"):
+                    keys = list(comps)
+                    stacked = torch.stack([comps[k] for k in keys])
+                    sums = stacked if sums is None else sums + stacked
             nb += 1
         out = self._means(keys, self._reduced(sums), nb, "train")
         out.update(timer.summary())
@@ -819,7 +834,7 @@ def build_train_parser():
                         choices=list(PRECISIONS),
                         help="f32 | bf16 (bf16 compute, f32 master weights) "
                              "| bf16_full (bf16 weights + bf16 Adam moments)")
-    return add_device_flag(add_multihost_flags(parser))
+    return add_trace_flag(add_device_flag(add_multihost_flags(parser)))
 
 
 @multihost.releases_programs
@@ -834,7 +849,12 @@ def main(argv=None):
                              args.process_id, args.device)
     if args.mesh:
         parse_mesh_spec(args.mesh)       # before anything is built
+    with profiling.trace(args.trace_dir):
+        return _train(args)
 
+
+def _train(args):
+    """``main`` once the flags are read and the group joined."""
     from sd_video_gen_tpu_torch.data import BatchLoader
 
     grid = (sweep_grid(args.config, args.config_dir) if args.sweep

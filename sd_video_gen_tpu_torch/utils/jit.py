@@ -58,6 +58,9 @@ the key, one graph per value, and it is baked into that graph. It goes into
 a generator's state or into a device tensor that the host fills before the
 call.
 
+Each call is the host span ``jit.<name>`` (``utils/profiling.span``):
+the eager run, or the input copies, the replay and the output clones.
+
 A capture that fails raises, naming the last torch function it reached
 (an ``.item()`` or a host-to-device copy from pageable memory cannot be
 captured: a host sync ends a capture); it never falls back to eager.
@@ -114,6 +117,7 @@ from torch.utils import _pytree as pytree
 from torch.overrides import TorchFunctionMode
 
 from sd_video_gen_tpu_torch.ops import _kernels
+from sd_video_gen_tpu_torch.utils import profiling
 
 # One record per compile: the jit's name, the key's tensor shapes, seconds
 # of warm-up and capture, the warm-up's and the graph's launches, and the
@@ -294,6 +298,7 @@ class jit:
         self.grad = grad
         self._events = None     # CUDA events around the last replay
         self.name = name or getattr(fn, "__qualname__", repr(fn))
+        self._span = f"jit.{self.name}"
         self.static_argnames = frozenset((static_argnames,)
                                          if isinstance(static_argnames, str)
                                          else static_argnames)
@@ -341,6 +346,10 @@ class jit:
                     or _kernels.recording())
 
     def __call__(self, *args, **kwargs):
+        with profiling.span(self._span):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         if self.eager():
             return self.fn(*args, **kwargs)
         slots = [(i, a) for i, a in enumerate(args)] + sorted(kwargs.items())
@@ -380,7 +389,7 @@ class jit:
                                if not BACKEND.captures_over(g)})
             warnings.warn(f"jit({self.name}): runs eagerly: its collectives "
                           f"run over a {'/'.join(backends)} process group, "
-                          f"which a CUDA graph cannot hold", stacklevel=3)
+                          f"which a CUDA graph cannot hold", stacklevel=4)
         return self.fn(*args, **kwargs)
 
     def _mode(self):

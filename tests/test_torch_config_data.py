@@ -25,7 +25,7 @@ from sd_video_gen_tpu_torch import config as PCfg
 from sd_video_gen_tpu_torch import data as PD
 from sd_video_gen_tpu_torch.data.latent_cache import LatentCacheDataset
 from sd_video_gen_tpu_torch.train.metrics import MetricsLogger
-from sd_video_gen_tpu_torch.utils.profiling import StepTimer, annotate, trace
+from sd_video_gen_tpu_torch.utils.profiling import StepTimer, span, trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(REPO, "configs")
@@ -301,18 +301,21 @@ def test_metrics_logger_writes_jsonl_without_wandb(tmp_path, capsys):
 
 
 def test_step_timer_and_trace(tmp_path):
+    import torch
     timer = StepTimer()
     assert timer.summary() == {}
-    timer.stop()                       # no start: ignored
     for _ in range(20):
-        timer.start()
-        timer.stop(sync=True)
+        with timer.step():
+            torch.ones(4).sum()
     s = timer.summary()
     assert s["steps_timed"] == 20
     assert 0 <= s["step_ms_p50"] <= s["step_ms_p95"]
     timer.reset()
     assert timer.summary() == {}
-    import torch
-    with trace(str(tmp_path / "tr")) as logdir, annotate("region"):
+    with trace(str(tmp_path / "tr")) as logdir, span("region"):
         torch.ones(4).sum()
-    assert os.path.getsize(os.path.join(logdir, "trace.json")) > 0
+    with open(os.path.join(logdir, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "region" in names
+    with trace(None) as nothing:       # no directory: nothing profiled
+        assert nothing is None
