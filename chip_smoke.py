@@ -351,13 +351,14 @@ from sd_video_gen_tpu_torch.tools import quality_modes as Q
 from sd_video_gen_tpu_torch.tools import split_check
 from sd_video_gen_tpu_torch.tools.bench_harness import (
     BF16_FLOPS, CONTEXT, DDIM_STEPS, F32_FLOPS, FLAGSHIP, FRAME,
-    HBM_BYTES_PER_S, HI_RES, KERNELS, PATH_DEFAULTS, PATHS, REFINER_PATHS,
+    COUNTED, HBM_BYTES_PER_S, HI_RES, KERNELS, PATH_DEFAULTS, PATHS, REFINER_PATHS,
     SD_GUIDANCE, SD_PATHS, SD_RUNS, TF32_FLOPS, TRAIN_FRAME, TRAIN_PATHS,
     TRAIN_TIMED, TRAIN_WARMUP, assert_finite, build_models, card,
     expected_launches, full_width_models, launch_window, log, make_trainer,
     passes_per_model, predict_fn, train_frames, wrapper_host_cost)
 from sd_video_gen_tpu_torch.train.checkpoint import (checkpoint_path,
                                                      save_checkpoint)
+from sd_video_gen_tpu_torch.train import optim
 from sd_video_gen_tpu_torch.train import trainer as T
 from sd_video_gen_tpu_torch.train.optim import Adam
 from sd_video_gen_tpu_torch.train.trainer import (Trainer, TrainState,
@@ -796,11 +797,19 @@ def log_wrapper_host_cost():
 def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True,
                      timing: bool = True) -> list:
     """Each kernel at each signature of ``sigs`` in each of ``dtypes``
-    against its plain version, timed (unless ``timing`` is False); fails on
-    any disagreement. ``nchw=False`` leaves out the GroupNorm NCHW body,
-    which no path takes."""
+    against its plain version, timed (unless ``timing`` is False), Adam's
+    groups in the dtypes they were recorded in, untimed
+    (``check_adam_group``); fails on any disagreement. ``nchw=False``
+    leaves out the GroupNorm NCHW body, which no path takes."""
     rows, failures = [], []
     for (name, sig), calls in sigs.items():
+        if name == optim.KERNEL:      # a group as recorded, in its dtypes
+            shapes, dtype, mu_dtype = sig
+            rows.extend(dict(r, kernel=name) for r in check_adam_group(
+                f"{what}a group called {calls} times",
+                {str(i): s for i, s in enumerate(shapes)},
+                dtype, mu_dtype))
+            continue
         if name == "groupnorm_silu" and sig[5] != "nhwc":
             raise AssertionError(f"the dry run handed GroupNorm a {sig[5]} "
                                  f"tensor {sig[0]}: the models left "
@@ -857,13 +866,213 @@ def check_signatures(sigs, dtypes, what: str = "", nchw: bool = True,
     return rows
 
 
+# Adam's one-pass kernel against its plain version (the foreach passes):
+# a table with ragged tails, one element, a 12.6M fused projection and a
+# parameter without gradient, in each dtype pair; then every group a path
+# hands the kernel, at its own tensors' shapes (``check_adam_group``).
+ADAM_SHAPES = {"one": (1,), "tail": (13,), "qkv": (6144, 2048),
+               "ragged": (1000003,), "small": (33, 7), "bias": (2048,),
+               "unused": (5, 3)}
+ADAM_PAIRS = ((torch.float32, None), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16))
+ADAM_ROWS = []       # every group's rows, for the kernels line
+
+
+def _adam_updates(params, grads, mu_dtype, plain: bool, graph: bool):
+    """Three updates of copies of ``params`` by ``grads``: eagerly, or
+    captured once into a CUDA graph and replayed with each step's bias
+    corrections and gradients filled in between (the compiled step's way);
+    under ``force_reference`` where ``plain``. Returns the parameters, the
+    state and the launches counted."""
+    opt = Adam(1e-3, mu_dtype=mu_dtype)
+    p = {k: v.clone() for k, v in params.items()}
+    state = opt.init(p)
+    before = _kernels.LAUNCHES[optim.KERNEL]
+    if not graph:
+        with (_kernels.force_reference() if plain
+              else contextlib.nullcontext()):
+            for count, g in enumerate(grads, start=1):
+                opt.update(p, g, state, count)
+    else:
+        scratch = {k: v.clone() for k, v in p.items()}   # the warm-up
+        opt.update(scratch, grads[0], opt.init(scratch), 1)
+        del scratch
+        torch.cuda.synchronize()
+        before = _kernels.LAUNCHES[optim.KERNEL]
+        static = {k: None if g is None else torch.zeros_like(g)
+                  for k, g in grads[0].items()}
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            opt.update(p, static, state)
+        for count, g in enumerate(grads, start=1):
+            for k, t in static.items():
+                if t is not None:
+                    t.copy_(g[k])
+            opt.set_count(p, state, count)
+            cuda_graph.replay()
+    torch.cuda.synchronize()
+    return p, state, _kernels.LAUNCHES[optim.KERNEL] - before
+
+
+def check_adam_group(what, shapes, dtype, mu_dtype, unused=()) -> list:
+    """The kernel against the foreach passes on one group: parameters of
+    ``shapes`` (name -> shape) in ``dtype`` drawn on the card, moments in
+    ``mu_dtype`` (None: the parameters'), three updates by gradients of
+    three scales (none for the names in ``unused``), eagerly and in a
+    graph's replay: p, mu and nu bit for bit, the launches the group's plan
+    gives (each update, or the capture once), a parameter without gradient
+    and its moments untouched. Returns a row a way, kept in ``ADAM_ROWS``;
+    raises on any difference."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    draw = lambda s, scale: (torch.randn(s, generator=gen, device="cuda")
+                             * scale).to(dtype)
+    params = {k: draw(s, 0.02) for k, s in shapes.items()}
+    grads = [{k: None if k in unused else draw(s, scale)
+              for k, s in shapes.items()} for scale in (1.0, 1e-3, 10.0)]
+    numels = [int(np.prod(s)) for k, s in shapes.items() if k not in unused]
+    per = len(optim.launch_plan(numels, 16 // dtype.itemsize,
+                                _kernels.library().sdvg_adam_max_tensors()))
+    want = _adam_updates(params, grads, mu_dtype, True, False)
+    rows = []
+    for graph in (False, True):
+        got = _adam_updates(params, grads, mu_dtype, False, graph)
+        diff = {f"{tree} {k}": int((a[k] != b[k]).sum())
+                for tree, a, b in (("p", got[0], want[0]),
+                                   ("mu", got[1]["mu"], want[1]["mu"]),
+                                   ("nu", got[1]["nu"], want[1]["nu"]))
+                for k in a}
+        untouched = all(torch.equal(got[0][k], params[k])
+                        and not got[1]["mu"][k].any()
+                        and not got[1]["nu"][k].any() for k in unused)
+        row = dict(what=what, tensors=len(shapes), parameters=sum(numels),
+                   dtype=str(dtype).split(".")[-1],
+                   mu_dtype=str(next(iter(got[1]["mu"].values())).dtype)
+                   .split(".")[-1],
+                   way="graph replay" if graph else "eager",
+                   launches=got[2], plain_launches=want[2],
+                   differ=sum(diff.values()), untouched=untouched)
+        row["ok"] = (row["differ"] == 0 and untouched and want[2] == 0
+                     and got[2] == per * (1 if graph else len(grads)))
+        log(f"kernel: adam {what}: {row['dtype']}/{row['mu_dtype']} "
+            f"{row['way']}, 3 updates of {len(shapes)} tensors, "
+            f"{row['parameters']} parameters: {row['differ']} elements "
+            f"differ from the plain version "
+            f"{ {k: n for k, n in diff.items() if n} }"
+            + (f", unused parameter {'untouched' if untouched else 'MOVED'}"
+               if unused else "")
+            + f", launches {got[2]} (plain {want[2]}) "
+            f"{'ok' if row['ok'] else 'FAIL'}")
+        rows.append(row)
+        del got
+    del params, grads, want
+    torch.cuda.empty_cache()
+    ADAM_ROWS.extend(rows)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"adam: the kernel left its plain version: "
+                             f"{bad}")
+    return rows
+
+
+def check_adam() -> None:
+    """``check_adam_group`` on ``ADAM_SHAPES`` in each dtype pair."""
+    for dtype, mu_dtype in ADAM_PAIRS:
+        check_adam_group("table", ADAM_SHAPES, dtype, mu_dtype,
+                         unused=("unused",))
+
+
+def check_trainer_adam(name, trainer) -> None:
+    """``check_adam_group`` on each group ``trainer``'s step hands the
+    kernel: its parameters' shapes in their dtypes and their moments'."""
+    state = trainer.state
+    groups = collections.defaultdict(dict)
+    for k, p in state.params.items():
+        groups[(p.dtype, state.opt_state["mu"][k].dtype)][k] = tuple(p.shape)
+    for (dtype, mu_dtype), shapes in groups.items():
+        check_adam_group(name, shapes, dtype, mu_dtype)
+
+
+def time_adam() -> dict:
+    """One update of ``train_flagship``'s transformer (bf16 parameters and
+    moments, 200 tensors) by the kernel and by its plain version, each
+    captured into a CUDA graph as the compiled step holds it (an eager
+    call's host work, ~1-3 ms for 200 tensors, would be timed instead)
+    and replayed in turns (once each from the same state first: p, mu and
+    nu compared bit for bit), and, as the yardstick only,
+    ``torch.optim.Adam(fused=True)`` (never on the port's path), eager;
+    CUDA events. The bound is one read of p, g, mu, nu and one write of p,
+    mu, nu at the card's bandwidth."""
+    model = build(FrameTransformer, FrameTransformerConfig.from_config(
+        TRAIN_PATHS[0]["cfg"]), "meta", torch.bfloat16, trainable=True)
+    shapes = [p.shape for p in model.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = {str(i): (torch.randn(s, generator=gen, device="cuda")
+                       * 0.02).bfloat16() for i, s in enumerate(shapes)}
+    grads = {k: (torch.randn(v.shape, generator=gen, device="cuda")
+                 * 1e-3).bfloat16() for k, v in params.items()}
+    opt = Adam(1e-5, mu_dtype=torch.bfloat16)
+    state = opt.init(params)
+    opt.set_count(params, state, 1)
+    numel = sum(p.numel() for p in params.values())
+
+    def captured(plain: bool):
+        with _kernels.force_reference() if plain else \
+                contextlib.nullcontext():
+            opt.update(params, grads, state)        # warm-up
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                opt.update(params, grads, state)
+        return graph
+    kernel, plain = captured(False), captured(True)
+    # each graph replayed once from the same state: the main path's group
+    # bit for bit through both
+    live = [*params.values(), *state["mu"].values(), *state["nu"].values()]
+    start, ends = [t.clone() for t in live], []
+    for graph in (kernel, plain):
+        for t, s in zip(live, start):
+            t.copy_(s)
+        graph.replay()
+        ends.append([t.clone() for t in live])
+    differ = sum(int((a != b).sum()) for a, b in zip(*ends))
+    moved = sum(int((a != b).sum()) for a, b in zip(ends[0], start))
+    del start, ends
+    if differ or not moved:
+        raise AssertionError(f"adam: at train_flagship's group the kernel's "
+                             f"replay moved {moved} elements of p, mu and "
+                             f"nu and left the plain version's in {differ}")
+    fused_params = [v.clone().requires_grad_(True) for v in params.values()]
+    for p, g in zip(fused_params, grads.values()):
+        p.grad = g
+    fused = torch.optim.Adam(fused_params, lr=1e-5, fused=True)
+    ms, plain_ms = timed(plain.replay, kernel.replay)
+    library_ms = cuda_ms(fused.step, 5)
+    nbytes = numel * 2 * 7          # p, g, mu, nu read; p, mu, nu written
+    out = dict(tensors=len(shapes), parameters=numel, differ=differ, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               gbps=nbytes / ms / 1e6)
+    log(f"kernel: adam at train_flagship's {numel} bf16 parameters in "
+        f"{len(shapes)} tensors: a replay moved {moved} elements of p, mu "
+        f"and nu, each bit for bit as the plain version's replay; "
+        f"{ms:.4f} ms ({out['gbps']:.0f} GB/s), plain (foreach) "
+        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"(bytes; {out['bound_ms'] / ms:.0%} of it reached), library "
+        f"(yardstick, not a port) torch.optim.Adam(fused=True) "
+        f"{library_ms:.4f} ms")
+    del params, grads, state, fused, fused_params, kernel, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel(sigs) -> dict:
     log(f"kernel: tensor cores' f32 sums of exact TF32 products (cuBLAS, "
         f"TF32 on): {tensor_core_rounding():.4f} of those off the exact sum "
         f"lie nearer zero")
     rows = check_signatures(sigs, (torch.bfloat16, torch.float32))
     log_wrapper_host_cost()
-    summary = {}
+    check_adam()
+    summary = {optim.KERNEL: time_adam()}
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         # times: the bf16 shape with the most kernel time in one batch of
@@ -1000,7 +1209,7 @@ def phase_sd(models) -> tuple:
     which compiles the path's programs); returns their launches and the
     pipeline with its inputs (phase ``jit`` replays the same programs)."""
     pipe, emb, img = sd_inputs(models)
-    total, compiles = {k: 0 for k in KERNELS}, {}
+    total, compiles = dict.fromkeys(COUNTED, 0), {}
     for path in SD_PATHS:
         name, walls = path["name"], []
         n_compiles = len(J.COMPILES)
@@ -1214,6 +1423,7 @@ def check_compiled(name, request, expected, eager_hook=None) -> dict:
     ``request(i)`` runs on input set i and returns a tuple of tensors;
     ``eager_hook`` is entered around the eager request. Prints and returns
     the walls, the device ms and the idle shares."""
+    expected = {optim.KERNEL: 0, **expected}     # a request trains nothing
     with launch_window() as compiled_w:
         one, wall_c, ms_c = timed_request(lambda: request(0))
     held = [x.clone() for x in one]
@@ -1316,7 +1526,8 @@ def graph_kernel_nodes(dot_path) -> collections.Counter:
     statement (``"graph_<g>_node_<n>"[...];``) counted once for each of the
     package's kernels its text names."""
     names = ("flash_fwd_wgmma", "flash_fwd_tf32x3", "gn_nhwc_cluster",
-             "gn_nhwc_stats", "gn_nhwc_apply")
+             "gn_nhwc_stats", "gn_nhwc_apply",
+             "sdvg_adam_multi_tensor_apply_kernel")
     with open(dot_path) as f:
         text = f.read()
     nodes = collections.Counter()
@@ -1438,7 +1649,7 @@ def jit_train_path(path, workdir, per_step) -> dict:
     body = "tf32x3"
     for i, (c, e) in enumerate(zip(compiled, eager)):
         got, want = ((w.launches, w.bodies, w.gn_bodies) for w in (c[1], e[1]))
-        if got != want:
+        if got != want or c[1].launches[optim.KERNEL] != 1:   # one group
             raise AssertionError(f"jit: {name} step {i + 1}: launches "
                                  f"compiled {got}, eager {want}")
         c[1].check(f"{name} step {i + 1} (compiled)", per_step, body)
@@ -1470,10 +1681,14 @@ def jit_train_path(path, workdir, per_step) -> dict:
             f"{nodes['flash_fwd_wgmma']}; K2 gn_nhwc_cluster "
             f"{nodes['gn_nhwc_cluster']}, gn_nhwc_stats "
             f"{nodes['gn_nhwc_stats']}, gn_nhwc_apply "
-            f"{nodes['gn_nhwc_apply']}; a replay's counted launches {want}")
+            f"{nodes['gn_nhwc_apply']}; Adam "
+            f"{nodes['sdvg_adam_multi_tensor_apply_kernel']}; a replay's "
+            f"counted launches {want}")
         if (nodes["flash_fwd_tf32x3"] != want["flash_attention"]
                 or nodes["flash_fwd_wgmma"] or k2 != want["groupnorm_silu"]
                 or nodes["gn_nhwc_apply"] != nodes["gn_nhwc_stats"]
+                or nodes["sdvg_adam_multi_tensor_apply_kernel"]
+                != want[optim.KERNEL]
                 or not want["flash_attention"]):
             raise AssertionError(f"jit: {name}: the step graph's kernel "
                                  f"nodes {dict(nodes)} are not the counted "
@@ -1488,7 +1703,7 @@ def jit_train_path(path, workdir, per_step) -> dict:
         eager_span_ms=float(np.mean([e[3] for e in eager[1:]])),
         replay_ms=program.replay_ms(),
         launches={k: sum(c[1].launches[k] for c in compiled)
-                  + ev_c.launches[k] for k in KERNELS})
+                  + ev_c.launches[k] for k in COUNTED})
     res["compiled_idle"] = 1 - res["device_ms"] / res["compiled_wall_ms"]
     res["eager_idle"] = 1 - res["device_ms"] / res["eager_wall_ms"]
     for c in compiled:
@@ -1514,7 +1729,7 @@ def phase_jit(models, sd, workdir) -> dict:
     (``check_compiled``), then the graph dump of the B=8 DDIM refiner;
     returns the compiled requests' launches. Frees phase 4's programs."""
     t0 = time.perf_counter()
-    total, rows = dict.fromkeys(KERNELS, 0), {}
+    total, rows = dict.fromkeys(COUNTED, 0), {}
     for path in PATHS:
         rows[path["name"]] = jit_serving_path(models, path)
     SERVED.clear()
@@ -1540,14 +1755,14 @@ def phase_jit_train(models, workdir) -> dict:
     returns the compiled steps' and evals' launches."""
     t0 = time.perf_counter()
     enc = {k: v[0] for k, v in passes_per_model(models).items()}
-    total, rows = dict.fromkeys(KERNELS, 0), {}
+    total, rows = dict.fromkeys(COUNTED, 0), {}
     for path in TRAIN_PATHS:
         rows[path["name"]] = jit_train_path(
             path, workdir, {k: n * (path["codec"] == "vae")
                             for k, n in enc.items()})
         gc.collect()
         torch.cuda.empty_cache()
-        for k in KERNELS:
+        for k in COUNTED:
             total[k] += rows[path["name"]]["launches"][k]
     log("jit: train table " + json.dumps({n: {k: v for k, v in r.items()
                                               if k != "launches"}
@@ -1628,8 +1843,9 @@ def run_train_path(path, trainer, enc_launches) -> dict:
         raise AssertionError(f"{name}: the loss did not fall on a fixed "
                              f"batch at lr {cfg.lr}: {losses}")
     vae = path["codec"] == "vae"
-    window.check(name, {k: steps * enc * vae
-                        for k, enc in enc_launches.items()},
+    window.check(name, {optim.KERNEL: steps,    # one group: one launch a step
+                        **{k: steps * enc * vae
+                           for k, enc in enc_launches.items()}},
                  flash_body="tf32x3")
     return counted(window)
 
@@ -1720,7 +1936,7 @@ def check_small_train_step():
         before = dict(_kernels.LAUNCHES)
         comps = [step_fn(state, frames, 0)[1] for _ in range(2)]
         launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
-                    for k in KERNELS}
+                    for k in COUNTED}
         out[dev] = ([{k: v.item() for k, v in c.items()} for c in comps],
                     torch.cat([m.flatten().cpu()
                                for m in state.opt_state["mu"].values()]),
@@ -1746,7 +1962,7 @@ def phase_train(models, workdir) -> tuple:
     """The three training paths; returns their launches in all and
     (path, Trainer) of ``train_flagship`` (phase 9 validates it)."""
     enc_launches = {k: v[0] for k, v in passes_per_model(models).items()}
-    total = {k: 0 for k in KERNELS}
+    total = dict.fromkeys(COUNTED, 0)
     by_name = {p["name"]: p for p in TRAIN_PATHS}
     # the f32 VAE step first: its kernel shapes, each against its plain
     # version, before anything is timed
@@ -1767,6 +1983,7 @@ def phase_train(models, workdir) -> tuple:
     for path in TRAIN_PATHS:
         trainer = (ref_trainer if path is ref
                    else make_trainer(path, workdir))
+        check_trainer_adam(path["name"], trainer)
         for k, n in run_train_path(path, trainer, enc_launches).items():
             total[k] += n
         if path["name"] == "train_flagship":
@@ -2138,7 +2355,7 @@ def phase_eval(models, files, sd_files, flagship) -> dict:
     log(f"eval: SD weight files ready after {time.perf_counter() - t0:.1f} s "
         f"more: " + ", ".join(f"{k}.pt {os.path.getsize(files[k]) / 2 ** 30:.2f}"
                               f" GiB" for k in ("vae", "unet")))
-    total = {k: 0 for k in KERNELS}
+    total = dict.fromkeys(COUNTED, 0)
     for path in EVAL_PATHS:
         for k, n in run_eval_path(models, files, path).items():
             total[k] += n
@@ -2921,6 +3138,9 @@ def check_tp_predict(run, ranks, one, one32, expected) -> None:
 
 
 def _check_worker_launches(run, r, res, want, flash_body="wgmma"):
+    """A rank's launches equal ``want`` (no Adam launch unless it says),
+    its K2 launches on the NHWC body, its K1 launches on ``flash_body``."""
+    want = {optim.KERNEL: 0, **want}
     launches = res["launches"]
     if (launches != want
             or res["gn_bodies"].get("nhwc", 0) != launches["groupnorm_silu"]
@@ -2972,8 +3192,6 @@ def check_tp_train(run, ranks, one, lr: float) -> None:
         f"{len(split)} split over the model axis")
     if not same or bool(split) != (model > 1):
         raise AssertionError(f"{run['name']}: replicated parameters drift")
-    for res in ranks:
-        _check_worker_launches(run, 0, res, {k: 0 for k in KERNELS})
     if one is None:
         return
     # a step's components are each data rank's own (its rows' means):
@@ -3387,7 +3605,7 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
     for name, extra in TP_CONFIGS.items():
         write_config(os.path.join(data_dir, name + ".yml"),
                      dict(DATA_YML, **extra))
-    total = {k: 0 for k in KERNELS}
+    total = dict.fromkeys(COUNTED, 0)
     sigs = collections.Counter()
     table = {}
     for run in runs or (TP_RUNS if cards == 1 else TP_CARD_RUNS):
@@ -3478,6 +3696,13 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
         else:
             check_tp_train(run, ranks, checked, DATA_YML["LR"][0])
         if run["entry"] == "train":
+            # the transformer reaches neither K1 nor K2; one group: one
+            # Adam launch a step on every rank
+            for r, res in enumerate(ranks):
+                _check_worker_launches(run, r, res, {
+                    **dict.fromkeys(KERNELS, 0),
+                    optim.KERNEL: len(res["steps"])})
+        if run["entry"] == "train":
             # the f32 flagship's whole states (5.3 GB each) leave the disk
             for res in [ranks[0], ranks[0].get("eager"), one, split]:
                 if res is not None:
@@ -3488,7 +3713,7 @@ def phase_tp(models, files, data_dir, workdir, cards=1, runs=None) -> tuple:
                 if part is None:
                     continue
                 BODY_LAUNCHES.update(part["bodies"])
-                for k in KERNELS:
+                for k in COUNTED:
                     total[k] += part["launches"][k]
     # every rank path that reaches a kernel runs it in bf16 on the NHWC
     # body; f32 and the NCHW body are checked at every full-width shape in
@@ -3692,15 +3917,16 @@ CLI_TIMEOUT = 300          # seconds, one child
 
 
 def check_child(name, counts, expected) -> dict:
-    """A child's COUNTED line: launches equal ``expected``, every dispatcher
-    call a launch, every flash launch on the ``wgmma`` body and every
-    GroupNorm launch on the ``nhwc`` body. Returns its launches, the flash
-    ones by body added to ``BODY_LAUNCHES``."""
+    """A child's COUNTED line: launches equal ``expected`` for each kernel
+    it names, every dispatcher call a launch, every flash launch on the
+    ``wgmma`` body and every GroupNorm launch on the ``nhwc`` body. Returns
+    its launches, the flash ones by body added to ``BODY_LAUNCHES``."""
     launches, bodies = counts["launches"], counts["bodies"]
     log(f"{name}: launches {launches}; by body {bodies}; dispatcher calls "
         f"{counts['calls']}; the path implies {expected}")
     nonzero = lambda d: {k: n for k, n in d.items() if n}
-    if launches != expected or counts["calls"] != nonzero(launches):
+    if any(launches[k] != n for k, n in expected.items()) \
+            or counts["calls"] != nonzero(launches):
         raise AssertionError(f"{name}: launches {launches} (dispatcher calls "
                              f"{counts['calls']}), the path implies "
                              f"{expected}")
@@ -3726,14 +3952,14 @@ def phase_cli(per_batch, checkpoint, workdir) -> dict:
     from sd_video_gen_tpu_torch.tools import bench_cli_train as CT
     from sd_video_gen_tpu_torch.tools import bench_knee as KN
     t0 = time.perf_counter()
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTED, 0)
 
     def add(launches):
-        for k in KERNELS:
-            total[k] += launches[k]
+        for k, n in launches.items():
+            total[k] += n
 
-    def times(n):
-        return {k: n * v for k, v in per_batch.items()}
+    def times(n):          # a serving child runs no optimizer
+        return {optim.KERNEL: 0, **{k: n * v for k, v in per_batch.items()}}
 
     serving = os.path.join(workdir, "cli", "serving")
     ckpt = checkpoint_path(os.path.join(serving, "checkpoints"),
@@ -3834,7 +4060,8 @@ def phase_bench() -> dict:
 def print_totals(launches, what: str) -> None:
     log(f"launches {what}: flash attention {launches['flash_attention']} "
         f"({ {b: BODY_LAUNCHES.get(b, 0) for b in FLASH_BODIES} }), "
-        f"GroupNorm {launches['groupnorm_silu']}")
+        f"GroupNorm {launches['groupnorm_silu']}, Adam "
+        f"{launches[optim.KERNEL]}")
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -3960,7 +4187,7 @@ def main() -> int:
             sigs.update(quality_signatures(models))
             mark("kernel")
             summary = phase_kernel(merge_signatures(sigs.values()))
-            launches = {k: 0 for k in KERNELS}
+            launches = dict.fromkeys(COUNTED, 0)
             mark("serve")
             for path in PATHS:
                 for k, n in phase_serve(models, path).items():
@@ -4003,7 +4230,7 @@ def main() -> int:
             mark("cli")
             cli_launches = phase_cli(per_batch, checkpoint_path(
                 files["checkpoints"], EVAL_CONFIG, 0, "test"), workdir)
-            for k in KERNELS:
+            for k in COUNTED:
                 launches[k] += (train_launches[k] + eval_launches[k]
                                 + data_launches[k] + tp_launches[k]
                                 + quality_launches[k] + cli_launches[k])
@@ -4031,7 +4258,11 @@ def main() -> int:
                               "library_ms")}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
-         **summary[k]} for k in KERNELS]}))
+         **summary[k]} for k in KERNELS] + [
+        {"name": optim.KERNEL, "route": "cuda",
+         "source": "sd_video_gen_tpu_torch/csrc/adam.cu", "replaces": None,
+         "launches": launches[optim.KERNEL], **summary[optim.KERNEL],
+         "checks": ADAM_ROWS}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,10 +21,11 @@ tensor-parallel routes a sharded program counts) with its graph and adds
 them once per replay.
 
 ``force_reference`` sends every dispatcher of this package (``attention``,
-``group_norm``) to its plain version at once: the on-card comparison of a
-whole model with and without the kernels. ``record_calls`` lists the
-signatures the dispatchers see, kernel or not: a dry run of a path under
-``force_reference`` gives every shape the path hands each kernel.
+``group_norm``, ``train/optim.Adam.update``) to its plain version at once:
+the on-card comparison of a whole model or step with and without the
+kernels. ``record_calls`` lists the signatures the dispatchers see, kernel
+or not: a dry run of a path under ``force_reference`` gives every shape the
+path hands each kernel.
 """
 
 from __future__ import annotations
@@ -225,6 +226,12 @@ def library() -> ctypes.CDLL:
             lib.sdvg_groupnorm_silu_nhwc.argtypes = [
                 p, p, p, p, p, ll, i, i, ll, i, ctypes.c_float, i, i, i, p]
             lib.sdvg_groupnorm_silu_nhwc.restype = i
+            fl = ctypes.c_float
+            lib.sdvg_adam_max_tensors.argtypes = []
+            lib.sdvg_adam_max_tensors.restype = i
+            lib.sdvg_adam.argtypes = [ctypes.POINTER(ll), i, ll, i, i, fl, fl,
+                                      fl, fl, fl, fl, p, p, p]
+            lib.sdvg_adam.restype = i
             lib.sdvg_stage_mark.argtypes = [i, p]
             lib.sdvg_stage_mark.restype = i
             lib.sdvg_error_string.argtypes = [i]

@@ -42,6 +42,7 @@ from sd_video_gen_tpu_torch.ops import groupnorm as gn
 from sd_video_gen_tpu_torch.ops.attention import (ROUTE_LAUNCHES,
                                                   flash_attention, route)
 from sd_video_gen_tpu_torch.predict.predict import make_predict_fn
+from sd_video_gen_tpu_torch.train import optim
 from sd_video_gen_tpu_torch.train.trainer import Trainer
 
 FRAME, CONTEXT, HI_RES, DDIM_STEPS = 64, 5, 512, 50
@@ -140,6 +141,9 @@ KERNELS = {
         source="sd_video_gen_tpu_torch/csrc/groupnorm_silu_nhwc.cu",
         replaces="sd_video_gen_tpu/ops/groupnorm.py:35"),
 }
+# Every kernel whose launches ``_kernels.LAUNCHES`` counts: K1, K2 and
+# Adam's update (``train/optim.py``; it replaces no TPU kernel).
+COUNTED = (*KERNELS, optim.KERNEL)
 # Device-time buckets of a trace, by kernel name; the first match wins.
 PROFILE_BUCKETS = (
     ("K1 flash attention", ("flash_fwd",)),
@@ -295,9 +299,10 @@ def expected_launches(models, path, batches: int) -> dict:
 
 class launch_window:
     """Counts of the main path: every count set to 0 on entry, read on exit
-    (``launches``, launches by body of each kernel, and ``calls``: the
-    dispatchers' calls, kernel or plain version). A compiled request's
-    replay adds what its capture counted (``utils/jit.py``)."""
+    (``launches`` of each kernel of ``COUNTED``, launches by body of K1 and
+    K2, and ``calls``: the dispatchers' calls, kernel or plain version). A
+    compiled request's replay adds what its capture counted
+    (``utils/jit.py``)."""
 
     def __enter__(self):
         for counter in _kernels.counters():
@@ -307,7 +312,7 @@ class launch_window:
     def __exit__(self, *exc):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
-        self.launches = {k: _kernels.LAUNCHES.get(k, 0) for k in KERNELS}
+        self.launches = {k: _kernels.LAUNCHES.get(k, 0) for k in COUNTED}
         self.calls = {k: n for k, n in _kernels.CALLS.items() if n}
         self.bodies = dict(ROUTE_LAUNCHES)
         self.gn_bodies = dict(gn.ROUTE_LAUNCHES)

@@ -7,7 +7,7 @@ imports ``<module>`` (e.g. ``sd_video_gen_tpu_torch.predict.predict``) and
 calls its ``main(argv)`` inside one launch window
 (``tools/bench_harness.launch_window``: ``_kernels.LAUNCHES``,
 ``_kernels.CALLS`` (every dispatcher call, kernel or plain version) and
-both dispatchers' launches by body, set to 0 on entry and read on exit).
+K1's and K2's launches by body, set to 0 on entry and read on exit).
 Nothing else changes: the CLI computes what it computes without the runner,
 its compiled programs included (a replay adds the counts its capture saw).
 When ``main`` returns, one line

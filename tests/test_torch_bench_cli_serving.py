@@ -184,7 +184,7 @@ def test_real_batch_run_on_the_cpu(tiny_serving):
     assert t["clips"] == 6 and t["batches"] == 3
     assert 0 < t["first_sync_s"] <= t["total_s"] < t["wall_s"]
     assert t["launches"]["launches"] == {"flash_attention": 0,
-                                         "groupnorm_silu": 0}
+                                         "groupnorm_silu": 0, "adam": 0}
 
 
 def test_real_serve_run_on_the_cpu(tiny_serving):
@@ -194,7 +194,7 @@ def test_real_serve_run_on_the_cpu(tiny_serving):
     assert r["ttff_warm_server_s"] == r["request_latencies_s"][0]
     assert r["steady_fps"] > 0 and r["server_ready_wall_s"] > 0
     assert r["launches"]["launches"] == {"flash_attention": 0,
-                                         "groupnorm_silu": 0}
+                                         "groupnorm_silu": 0, "adam": 0}
     assert not os.path.exists(os.path.join(tiny_serving["cfg_dir"], "..",
                                            "serve.sock"))
 
@@ -226,7 +226,8 @@ def test_counted_runner_equals_in_process_count(tiny_serving):
         want[name] = want.get(name, 0) + n
     assert counts["calls"] == want
     assert want["groupnorm_silu"] > 0 and want["flash_attention"] > 0
-    assert counts["launches"] == {"flash_attention": 0, "groupnorm_silu": 0}
+    assert counts["launches"] == {"flash_attention": 0, "groupnorm_silu": 0,
+                                  "adam": 0}
     assert counts["bodies"] == {"flash_attention": {}, "groupnorm_silu": {}}
 
 
@@ -241,7 +242,7 @@ def test_counted_runner_passes_the_exit_code(tmp_path, monkeypatch,
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "ran ['--x', '1']"
     assert C.parse(lines) == {
-        "launches": {"flash_attention": 0, "groupnorm_silu": 0},
+        "launches": {"flash_attention": 0, "groupnorm_silu": 0, "adam": 0},
         "bodies": {"flash_attention": {}, "groupnorm_silu": {}},
         "calls": {}}
     with pytest.raises(RuntimeError, match="COUNTED"):

@@ -132,7 +132,7 @@ def test_real_trainer_run_on_the_cpu(tmp_path):
     assert s["steady_steps_per_s"] > 0 and s["compile_epoch_p95_ms"] > 0
     assert all(x == x for x in s["train_loss_first_last"])   # finite
     assert run["launches"]["launches"] == {"flash_attention": 0,
-                                           "groupnorm_silu": 0}
+                                           "groupnorm_silu": 0, "adam": 0}
     assert os.path.isdir(os.path.join(paths["checkpoints"],
                                       "cli_flag128_0_test"))
 

@@ -173,7 +173,8 @@ def test_launch_counts_are_added_once_per_replay(graphs):
     with launch_window() as window:
         for _ in range(4):
             f(torch.zeros(2))
-    assert window.launches == {"flash_attention": 4, "groupnorm_silu": 12}
+    assert window.launches == {"flash_attention": 4, "groupnorm_silu": 12,
+                               "adam": 0}
     assert window.calls == {"flash_attention": 4, "groupnorm_silu": 12}
     assert window.bodies == {"wgmma": 4} and window.gn_bodies == {"nhwc": 12}
     # the compile's launches are kept with it, not counted as a request's
@@ -182,7 +183,8 @@ def test_launch_counts_are_added_once_per_replay(graphs):
         "flash_attention": 1, "groupnorm_silu": 3}
     with J.disable_jit(), launch_window() as eager:
         f(torch.zeros(2))
-    assert eager.launches == {"flash_attention": 1, "groupnorm_silu": 3}
+    assert eager.launches == {"flash_attention": 1, "groupnorm_silu": 3,
+                              "adam": 0}
 
 
 def test_a_nested_jit_joins_the_outer_program(graphs):

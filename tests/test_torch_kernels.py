@@ -20,7 +20,12 @@ order; bf16 (2^-8, 1e-5), the one final rounding (half an ulp) plus that f32
 noise. Both GroupNorm bodies are held to it: a contiguous tensor takes the
 NCHW body, a channels-last one the NHWC body (``groupnorm.route``), in its
 cluster mode (one read, one launch) or its streaming mode (two of each).
+Adam's one-pass update (``train/optim.multi_tensor_adam``): bit-equal to its
+plain version, the foreach passes, in every dtype pair the trainer and the
+optax test use, eagerly and in a CUDA graph's replay.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -29,6 +34,7 @@ from torch import nn
 from sd_video_gen_tpu_torch.ops import _kernels
 from sd_video_gen_tpu_torch.ops import attention as patt
 from sd_video_gen_tpu_torch.ops import groupnorm as pgn
+from sd_video_gen_tpu_torch.train import optim
 
 GN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -8, 1e-5)}
 TF32X3_ATOL = 3e-5
@@ -463,3 +469,117 @@ def test_attention_dispatch_copies_nothing(cuda):
     x = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         patt.attention(x, x, x)
+
+
+# Adam's table: ragged tails (numel % 8 != 0), one element, one of the
+# transformer's 12.6M fused projections, and a parameter without gradient
+ADAM_SHAPES = {"one": (1,), "tail": (13,), "qkv": (6144, 2048),
+               "ragged": (1000003,), "small": (33, 7), "bias": (2048,),
+               "unused": (5, 3)}
+ADAM_PAIRS = [(torch.float32, None), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16)]
+
+
+def _adam_case(dtype, device, updates=3):
+    gen = torch.Generator().manual_seed(21)
+    params = {k: (torch.randn(s, generator=gen) * 0.02).to(dtype).to(device)
+              for k, s in ADAM_SHAPES.items()}
+    grads = [{k: None if k == "unused" else
+              (torch.randn(s, generator=gen) * scale).to(dtype).to(device)
+              for k, s in ADAM_SHAPES.items()}
+             for scale in (1.0, 1e-3, 10.0)[:updates]]
+    return params, grads
+
+
+def _adam_run(params, grads, mu_dtype, plain: bool):
+    opt = optim.Adam(1e-3, mu_dtype=mu_dtype)
+    p = {k: v.clone() for k, v in params.items()}
+    state = opt.init(p)
+    before = _kernels.LAUNCHES[optim.KERNEL]
+    with _kernels.force_reference() if plain else contextlib.nullcontext():
+        for count, g in enumerate(grads, start=1):
+            opt.update(p, g, state, count)
+    torch.cuda.synchronize()
+    return p, state, _kernels.LAUNCHES[optim.KERNEL] - before
+
+
+def _assert_same_adam(got, want, params):
+    for tree, a, b in (("p", got[0], want[0]), ("mu", got[1]["mu"],
+                                                 want[1]["mu"]),
+                       ("nu", got[1]["nu"], want[1]["nu"])):
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            assert torch.equal(a[k], b[k]), (tree, k, float(
+                (a[k].float() - b[k].float()).abs().max()))
+    assert torch.equal(got[0]["unused"], params["unused"])
+    assert not got[1]["mu"]["unused"].any()
+    assert not got[1]["nu"]["unused"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mu_dtype", ADAM_PAIRS)
+def test_adam_kernel_is_bit_equal_to_its_plain_version(cuda, dtype, mu_dtype):
+    """Three updates of the table, one launch each (one group), against the
+    foreach passes under ``force_reference`` (no launch): p, mu and nu bit
+    for bit; the parameter without gradient and its moments untouched."""
+    params, grads = _adam_case(dtype, cuda)
+    got = _adam_run(params, grads, mu_dtype, plain=False)
+    want = _adam_run(params, grads, mu_dtype, plain=True)
+    assert (got[2], want[2]) == (3, 0)
+    assert got[1]["mu"]["qkv"].dtype == (mu_dtype or dtype)
+    _assert_same_adam(got, want, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mu_dtype", ADAM_PAIRS)
+def test_adam_kernel_in_a_graph_replay(cuda, dtype, mu_dtype):
+    """The update captured once into a CUDA graph (one launch counted at the
+    capture) and replayed three times, the host filling each step's bias
+    corrections and gradients between replays, as the compiled train step
+    does: bit-equal to three eager updates of the plain version."""
+    params, grads = _adam_case(dtype, cuda)
+    want = _adam_run(params, grads, mu_dtype, plain=True)
+    opt = optim.Adam(1e-3, mu_dtype=mu_dtype)
+    p = {k: v.clone() for k, v in params.items()}
+    state = opt.init(p)
+    static = {k: None if g is None else torch.zeros_like(g)
+              for k, g in grads[0].items()}
+    # warm-up on copies: builds the library, sizes the grid
+    scratch = {k: v.clone() for k, v in p.items()}
+    opt.update(scratch, grads[0], opt.init(scratch), 1)
+    torch.cuda.synchronize()
+    before = _kernels.LAUNCHES[optim.KERNEL]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.update(p, static, state)
+    assert _kernels.LAUNCHES[optim.KERNEL] == before + 1
+    for count, g in enumerate(grads, start=1):
+        for k, t in static.items():
+            if t is not None:
+                t.copy_(g[k])
+        opt.set_count(p, state, count)
+        graph.replay()
+    torch.cuda.synchronize()
+    _assert_same_adam((p, state), want, params)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_rejects_what_it_cannot_take(cuda):
+    p = torch.zeros(64, device=cuda)
+    bc = torch.ones((), device=cuda)
+    scalars = optim.Adam(1e-3).scalars(torch.float32, torch.float32)
+
+    def launch(q=p, g=p, m=p, n=p, b=bc):
+        optim.multi_tensor_adam([q], [g], [m], [n], b, bc, scalars)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(g=torch.zeros(8, 16, device=cuda).t().reshape(8, 16).t())
+    with pytest.raises(ValueError, match="aligned"):
+        launch(q=torch.zeros(65, device=cuda)[1:])
+    with pytest.raises(ValueError, match="group of"):
+        launch(n=p.bfloat16())
+    with pytest.raises(ValueError, match="kernel takes"):
+        launch(q=p.half(), g=p.half(), m=p.half(), n=p.half())
+    with pytest.raises(ValueError, match="bias correction"):
+        launch(b=torch.ones(1, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        launch(g=torch.zeros(8, 8, device=cuda))
